@@ -1,0 +1,163 @@
+// Fused depthwise residual unit for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel neuralcodecs_tpu/ops/pallas/resunit.py
+// (fused_residual_unit, _make_kernel; depthwise form). It computes, for x in
+// torch's [B, C, T] layout,
+//
+//   out = x + b1 + W1 . snake(bd + dilconv_k7(snake(x, a1)), a2)
+//
+// which is one SNAC ResidualUnit: a depthwise (groups = C) 7-tap conv with
+// dilation d and zero padding 3d, then a C x C pointwise conv.
+//
+// What bounds it on the H100: the pointwise C x C product (2 C^2 flops per
+// element against 8 bytes of input and output) is bound by operations in
+// f32 for every SNAC width; the unfused chain is also bound by the device
+// bytes of its five intermediate [B, C, T] tensors. The design keeps all
+// intermediates on chip: one block per (stream, time tile) snakes the
+// tile's input window (tile + dilation halo) into shared memory, channel
+// chunk by channel chunk, runs the 7 taps, bias and second snake, and keeps
+// the result y [C, tile] in shared memory; then it computes the pointwise
+// product from there with f32 FMAs (a 4 x 4 register tile per thread, the
+// weights staged in 32-channel slabs) and adds bias and residual as it
+// writes the output, once. The time tile is chosen from C so that y fits in
+// shared memory (128 steps up to C = 128, else 64: 128 KB at C = 512).
+// Ragged channel counts and the ragged tail of T are masked in the kernel.
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+
+namespace {
+
+constexpr int kTaps = 7;
+constexpr int kThreads = 256;
+constexpr int kTileM = 64;              // output channels per pass (16 x 4)
+constexpr int kTileN = 64;              // time steps per pass (16 x 4)
+constexpr int kSlabK = 32;              // input channels per weight slab
+constexpr int kSlabStride = kTileM + 4; // padded: fewer bank conflicts, 16 B rows
+constexpr int kChan = 16;               // channels per stage-1 chunk
+constexpr int kMaxSmem = 227 * 1024;
+
+__device__ __forceinline__ float snake(float x, float a) {
+  if (a == 0.f) return x;
+  const float s = sinf(a * x);
+  return x + (s * s) / a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+resunit_depthwise_kernel(const float* __restrict__ x, const float* __restrict__ a1,
+                         const float* __restrict__ wd, const float* __restrict__ bd,
+                         const float* __restrict__ a2, const float* __restrict__ w1,
+                         const float* __restrict__ b1, float* __restrict__ out,
+                         int C, int T, int dil, int tt) {
+  extern __shared__ __align__(16) float smem[];
+  const int halo = 3 * dil;
+  const int hw = tt + 2 * halo;                       // stage-1 window width
+  float* y_s = smem;                                  // [C][tt]
+  float* scratch = y_s + static_cast<size_t>(C) * tt; // stage 1: [kChan][hw]
+                                                      // stage 2: [kSlabK][kSlabStride]
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * tt;
+  const size_t plane = static_cast<size_t>(C) * T;
+  const float* xb = x + blockIdx.y * plane;
+  float* ob = out + blockIdx.y * plane;
+
+  // ---- stage 1: y = snake(bd + dilconv(snake(x, a1)), a2) for the tile
+  for (int c0 = 0; c0 < C; c0 += kChan) {
+    const int cn = min(kChan, C - c0);
+    __syncthreads();  // the previous chunk's window is consumed
+    for (int i = tid; i < cn * hw; i += kThreads) {
+      const int c = c0 + i / hw;
+      const int t = t0 - halo + i % hw;
+      scratch[i] = (t >= 0 && t < T)
+                       ? snake(xb[static_cast<size_t>(c) * T + t], a1[c]) : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < cn * tt; i += kThreads) {
+      const int cc = i / tt, j = i % tt;
+      const int c = c0 + cc;
+      const float* h = scratch + cc * hw + j;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) acc = fmaf(wd[c * kTaps + k], h[k * dil], acc);
+      y_s[static_cast<size_t>(c) * tt + j] = (t0 + j < T) ? snake(acc + bd[c], a2[c]) : 0.f;
+    }
+  }
+
+  // ---- stage 2: out = x + (W1 . y + b1), C x C product from shared memory
+  const int tx = tid % 16;  // time: 4 consecutive steps
+  const int ty = tid / 16;  // channels: 4 consecutive outputs
+  for (int m0 = 0; m0 < C; m0 += kTileM) {
+    for (int n0 = 0; n0 < tt; n0 += kTileN) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int k0 = 0; k0 < C; k0 += kSlabK) {
+        const int kn = min(kSlabK, C - k0);
+        __syncthreads();  // stage 1 or the previous slab is consumed
+        for (int i = tid; i < kSlabK * kTileM; i += kThreads) {
+          const int m = i / kSlabK, kk = i % kSlabK;  // reads along W1's rows
+          const int co = m0 + m;
+          scratch[kk * kSlabStride + m] =
+              (co < C && kk < kn) ? w1[static_cast<size_t>(co) * C + k0 + kk] : 0.f;
+        }
+        __syncthreads();
+        for (int kk = 0; kk < kn; ++kk) {
+          const float4 a = *reinterpret_cast<const float4*>(scratch + kk * kSlabStride + ty * 4);
+          const float4 v = *reinterpret_cast<const float4*>(
+              y_s + static_cast<size_t>(k0 + kk) * tt + n0 + tx * 4);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], vv[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int co = m0 + ty * 4 + i;
+        if (co >= C) continue;
+        const float bias = b1[co];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = t0 + n0 + tx * 4 + j;
+          if (t < T) {
+            const size_t o = static_cast<size_t>(co) * T + t;
+            ob[o] = xb[o] + (acc[i][j] + bias);
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// x, out [B, C, T]; a1, a2, bd, b1 [C]; wd [C, 1, 7]; w1 [C, C, 1]; all f32
+// contiguous, out not aliasing x. Returns cudaGetLastError().
+extern "C" int nc_resunit_depthwise_f32(const float* x, const float* a1, const float* wd,
+                                        const float* bd, const float* a2, const float* w1,
+                                        const float* b1, float* out, int B, int C, int T,
+                                        int dil, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B <= 0 || C <= 0 || T <= 0) return cudaSuccess;
+  if (dil <= 0 || B > 65535) return cudaErrorInvalidValue;
+  const int tt = C <= 128 ? 128 : 64;
+  const int hw = tt + 6 * dil;
+  const size_t scratch = std::max(static_cast<size_t>(kChan) * hw,
+                                  static_cast<size_t>(kSlabK) * kSlabStride);
+  const size_t smem = (static_cast<size_t>(C) * tt + scratch) * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(resunit_depthwise_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + tt - 1) / tt, B);
+  resunit_depthwise_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, a1, wd, bd, a2, w1, b1, out, C, T, dil, tt);
+  return cudaGetLastError();
+}

@@ -1,0 +1,273 @@
+"""SNAC — Multi-Scale Neural Audio Codec, PyTorch port.
+
+Counterpart of neuralcodecs_tpu.models.snac.model. Topology:
+
+  pad → Encoder (WNConv1d k7 → N×[3 dilated ResUnits + Snake + strided conv]
+        → optional LocalMHA → depthwise WNConv1d k7)
+      → multi-scale RVQ (per-stage stride pooling, normalized L2 argmin)
+      → Decoder (depthwise conv pair → optional LocalMHA →
+        N×[Snake → ConvTranspose → Noise → 3 ResUnits] → Snake → conv → tanh)
+      → trim to input length.
+
+Module and parameter names follow the upstream checkpoint (``encoder.block``,
+``quantizer.quantizers``, ``decoder.model``). The round trip runs unchunked:
+the JAX package's chunked execution is a TPU speed mechanism and is not
+ported. On a CUDA device the 24 residual units (SNAC-24k) run the fused
+residual-unit kernel and every RVQ stage runs the codebook kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from neuralcodecs_tpu_torch.dsp.resample import linear_resample
+from neuralcodecs_tpu_torch.models.layers import (
+    LocalMHA,
+    NoiseBlock,
+    ResidualUnit,
+    Sequential,
+    Snake1d,
+    Tanh,
+    WNConv1d,
+    WNConvTranspose1d,
+)
+from neuralcodecs_tpu_torch.models.snac.config import SNACConfig
+from neuralcodecs_tpu_torch.ops.vq import codebook_lookup, cosine_argmin_codes
+
+
+class EncoderBlock(nn.Module):
+    """3×ResidualUnit(dil 1/3/9) + Snake + strided conv."""
+
+    def __init__(self, out_dim: int, stride: int, groups: int):
+        super().__init__()
+        in_dim = out_dim // 2
+        self.block = nn.Sequential(
+            ResidualUnit(in_dim, dilation=1, groups=groups),
+            ResidualUnit(in_dim, dilation=3, groups=groups),
+            ResidualUnit(in_dim, dilation=9, groups=groups),
+            Snake1d(in_dim),
+            WNConv1d(in_dim, out_dim, 2 * stride, stride=stride, padding=-(-stride // 2)),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class DecoderBlock(nn.Module):
+    """Snake → ConvTranspose(k=2s, output_padding=s%2) → Noise? → 3×ResUnit."""
+
+    takes_generator = True
+
+    def __init__(self, in_dim: int, out_dim: int, stride: int, noise: bool, groups: int):
+        super().__init__()
+        layers: list[nn.Module] = [
+            Snake1d(in_dim),
+            WNConvTranspose1d(in_dim, out_dim, 2 * stride, stride=stride,
+                              padding=-(-stride // 2), output_padding=stride % 2),
+        ]
+        if noise:
+            layers.append(NoiseBlock(out_dim))
+        layers += [ResidualUnit(out_dim, dilation=d, groups=groups) for d in (1, 3, 9)]
+        self.block = Sequential(*layers)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.block(x, generator)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: SNACConfig):
+        super().__init__()
+        layers: list[nn.Module] = [WNConv1d(1, cfg.encoder_dim, 7, padding=3)]
+        dim = cfg.encoder_dim
+        for stride in cfg.encoder_rates:
+            dim *= 2
+            layers.append(EncoderBlock(dim, stride, dim // 2 if cfg.depthwise else 1))
+        if cfg.attn_window_size:
+            layers.append(LocalMHA(dim, window_size=cfg.attn_window_size))
+        layers.append(WNConv1d(dim, dim, 7, padding=3, groups=dim if cfg.depthwise else 1))
+        self.block = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: SNACConfig):
+        super().__init__()
+        latent = cfg.resolved_latent_dim
+        if cfg.depthwise:
+            layers: list[nn.Module] = [
+                WNConv1d(latent, latent, 7, padding=3, groups=latent),
+                WNConv1d(latent, cfg.decoder_dim, 1),
+            ]
+        else:
+            layers = [WNConv1d(latent, cfg.decoder_dim, 7, padding=3)]
+        if cfg.attn_window_size:
+            layers.append(LocalMHA(cfg.decoder_dim, window_size=cfg.attn_window_size))
+        out_dim = cfg.decoder_dim
+        for i, rate in enumerate(cfg.decoder_rates):
+            in_dim = cfg.decoder_dim // (1 << i)
+            out_dim = cfg.decoder_dim // (1 << (i + 1))
+            layers.append(DecoderBlock(in_dim, out_dim, rate, cfg.noise,
+                                       out_dim if cfg.depthwise else 1))
+        layers += [Snake1d(out_dim), WNConv1d(out_dim, 1, 7, padding=3), Tanh()]
+        self.model = Sequential(*layers)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.model(x, generator)
+
+
+class VectorQuantizer(nn.Module):
+    """One RVQ stage: stride pool → in_proj → argmin codebook → out_proj →
+    repeat_interleave."""
+
+    def __init__(self, input_dim: int, codebook_size: int, codebook_dim: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.in_proj = WNConv1d(input_dim, codebook_dim, 1)
+        self.out_proj = WNConv1d(codebook_dim, input_dim, 1)
+        self.codebook = nn.Embedding(codebook_size, codebook_dim)
+
+    def forward(self, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """z: [B, C, T] residual at full frame rate -> (z_q [B, C, T], codes [B, T/s])."""
+        if self.stride > 1:
+            b, c, t = z.shape
+            z = z.reshape(b, c, t // self.stride, self.stride).mean(dim=-1)
+        z_e = self.in_proj(z)                                         # [B, D, T']
+        codebook = self.codebook.weight
+        codes = cosine_argmin_codes(z_e.transpose(1, 2), codebook)   # [B, T']
+        z_q = codebook_lookup(codes, codebook).transpose(1, 2)
+        z_q = z_e + (z_q - z_e)  # straight-through, rounded as the JAX forward rounds it
+        z_q = self.out_proj(z_q)
+        if self.stride > 1:
+            z_q = z_q.repeat_interleave(self.stride, dim=-1)
+        return z_q, codes
+
+    def decode_code(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B, T/s] -> z_q contribution [B, C, T]."""
+        z_q = self.out_proj(codebook_lookup(codes, self.codebook.weight).transpose(1, 2))
+        if self.stride > 1:
+            z_q = z_q.repeat_interleave(self.stride, dim=-1)
+        return z_q
+
+
+class ResidualVectorQuantizer(nn.Module):
+    def __init__(self, cfg: SNACConfig):
+        super().__init__()
+        self.quantizers = nn.ModuleList(
+            VectorQuantizer(cfg.resolved_latent_dim, cfg.codebook_size, cfg.codebook_dim, s)
+            for s in cfg.vq_strides)
+
+    def forward(self, z: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        residual, z_q = z, torch.zeros_like(z)
+        codes = []
+        for vq in self.quantizers:
+            z_q_i, codes_i = vq(residual)
+            residual = residual - z_q_i
+            z_q = z_q + z_q_i
+            codes.append(codes_i)
+        return z_q, codes
+
+    def from_codes(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
+        z_q = self.quantizers[0].decode_code(codes[0])
+        for vq, c in zip(self.quantizers[1:], codes[1:]):
+            z_q = z_q + vq.decode_code(c)
+        return z_q
+
+
+class SNAC(nn.Module):
+    """Public SNAC codec: forward / encode / decode / process_audio.
+
+    Weights are torch-default random from ``seed`` (made on the CPU, so the
+    same seed gives the same weights on every device) until a folded
+    checkpoint is loaded with ``load_state_dict``."""
+
+    def __init__(self, config: SNACConfig | None = None, *,
+                 device: torch.device | str | None = None, seed: int = 0):
+        super().__init__()
+        self.config = config or SNACConfig()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.encoder = Encoder(self.config)
+            self.quantizer = ResidualVectorQuantizer(self.config)
+            self.decoder = Decoder(self.config)
+        self.to(device or "cpu")
+
+    @property
+    def device(self) -> torch.device:
+        return self.quantizer.quantizers[0].codebook.weight.device
+
+    # ----------------------------------------------------------------- compute
+
+    def _forward_fn(self, audio: torch.Tensor, generator: torch.Generator | None
+                    ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """Round trip on padded [B, 1, T] audio -> ([B, 1, T], codes)."""
+        z = self.encoder(audio)
+        z_q, codes = self.quantizer(z)
+        return self.decoder(z_q, generator), codes
+
+    def _encode_fn(self, audio: torch.Tensor) -> list[torch.Tensor]:
+        return self.quantizer(self.encoder(audio))[1]
+
+    def _decode_fn(self, codes: Sequence[torch.Tensor],
+                   generator: torch.Generator | None) -> torch.Tensor:
+        return self.decoder(self.quantizer.from_codes(codes), generator)
+
+    # ------------------------------------------------------------- public API
+
+    def _pad_length(self, length: int) -> int:
+        pad_to = self.config.pad_to
+        return -(-length // pad_to) * pad_to
+
+    def _prepare(self, audio) -> tuple[torch.Tensor, int]:
+        """[T] | [B, T] | [B, 1, T] -> padded [B, 1, T'] on the model's device,
+        plus the original length."""
+        a = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        if a.dim() == 1:
+            a = a[None, :]
+        elif a.dim() == 3:
+            a = a[:, 0, :]
+        length = a.shape[-1]
+        a = torch.nn.functional.pad(a, (0, self._pad_length(length) - length))
+        return a[:, None, :].contiguous(), length
+
+    def _noise_generator(self, generator: torch.Generator | None) -> torch.Generator | None:
+        """The generator for the decoder noise: None when the config has no
+        noise; a fresh one seeded 0 when noise is on and none is given."""
+        if not self.config.noise:
+            return None
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return generator
+
+    @torch.no_grad()
+    def forward(self, audio, generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """Round trip: returns (audio_hat [B, T], codes list of [B, frames_i])."""
+        a, length = self._prepare(audio)
+        audio_hat, codes = self._forward_fn(a, self._noise_generator(generator))
+        return audio_hat[:, 0, :length], codes
+
+    @torch.no_grad()
+    def encode(self, audio) -> list[torch.Tensor]:
+        """Audio -> list of per-stage code index arrays [B, frames_i]."""
+        return self._encode_fn(self._prepare(audio)[0])
+
+    @torch.no_grad()
+    def decode(self, codes: Sequence, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Codes -> audio [B, T] (T = frames of the stride-1 stage × hop)."""
+        codes = [torch.as_tensor(c, dtype=torch.int32, device=self.device) for c in codes]
+        codes = [c[None, :] if c.dim() == 1 else c for c in codes]
+        return self._decode_fn(codes, self._noise_generator(generator))[:, 0, :]
+
+    def process_audio(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
+        """Resample to the model's rate if needed, then round-trip one clip."""
+        audio = torch.as_tensor(np.asarray(audio, dtype=np.float32))
+        if sample_rate != self.config.sample_rate:
+            audio = linear_resample(audio, sample_rate, self.config.sample_rate)
+        out, _ = self.forward(audio)
+        return (out[0] if out.dim() == 2 else out).cpu().numpy()

@@ -1,0 +1,118 @@
+"""Build the port's CUDA kernels into one shared library, loaded with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, at first use, never at import. The
+library lands in ``neuralcodecs_tpu_torch/_build/`` (ignored by git), named
+by a hash of the sources and flags, so an unchanged tree reuses it and a
+changed one rebuilds. Sources that include PyTorch's headers take minutes
+to compile; these include only the CUDA runtime and build in seconds.
+
+A failed build raises KernelBuildError: no wrapper falls back to its plain
+version on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+from neuralcodecs_tpu_torch.core.exceptions import KernelBuildError
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: each returns cudaGetLastError() after its launch
+_SIGNATURES = {
+    # x, codebook, out, T, N, D, device, stream
+    "nc_codebook_argmin_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, alpha1, w_dil, b_dil, alpha2, w_pw, b_pw, out, B, C, T, dilation, device, stream
+    "nc_resunit_depthwise_f32": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
+
+
+def sources() -> list[Path]:
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libnctorch_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    global build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; cached per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as exc:
+                raise KernelBuildError(f"cannot load {path}: {exc}") from exc
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def device_and_stream(t) -> tuple[int, int]:
+    """(device index, raw handle of torch's current stream) for a CUDA tensor:
+    the kernels launch on the stream torch is using for that device."""
+    import torch
+
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
