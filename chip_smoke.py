@@ -2,18 +2,28 @@
 
     python3 chip_smoke.py [--out details.json]
 
-Builds the port's CUDA kernels from neuralcodecs_tpu_torch/csrc, holds each
-against its plain PyTorch version at the shapes the SNAC-24k round trip
-gives it, checks the port against the frozen SNAC golden and against itself
-on the CPU, then serves a few requests through full-width SNAC-24k (seeded
-random weights) and checks that the main path launched both kernels.
-Exits non-zero at the first failed phase, and at once when no CUDA device
-is available. The last line is a JSON object naming the device.
+Builds the port's CUDA kernels from neuralcodecs_tpu_torch/csrc and holds
+each against its plain PyTorch version at the shapes its round trips give
+it. SNAC-24k: checks the port against the frozen SNAC golden and against
+itself on the CPU, then serves a few requests through full-width SNAC-24k
+(seeded random weights). Encodec: reproduces the frozen raw .ecdc stream,
+checks full-width Encodec-24k against itself on the CPU, serves a few
+requests through it and times its round trip with the kernels and with
+the plain versions, then runs full-width stereo Encodec-48k through its
+chunked forward. Each served path runs with the launch counters set to 0
+just before it and read just after, and fails unless every kernel of the
+path launched as often as the path calls it; the kernels line reports the
+sum over those paths, and each kernel's time against its plain version at
+every shape checked. A torch.profiler pass over the Encodec-24k round
+trip gives its device time by kernel and its idle share. Exits non-zero at
+the first failed phase, and at once when no CUDA device is available. The
+last line is a JSON object naming the device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import queue
 import subprocess
@@ -123,9 +133,13 @@ def phase_codebook(gen: torch.Generator) -> dict:
 
     dev = torch.device(DEVICE)
     # (N, D, T, normalized): SNAC 4096x8 at one 10 s stream's stage lengths
-    # (118/236/472) and at batch 4 (1888), DAC 1024x8, Encodec 1024x128
+    # (118/236/472) and at batch 4 (1888), DAC 1024x8, and Encodec 1024x128
+    # at the rows a stage gets on its paths: 24k 1 s (75), 48k 2.5 s tail
+    # (78), one 48k chunk (150), the 48k two-chunk batch (300), 24k 3 s
+    # padded to batch 4 (900) and 24k batch 4 x 10 s (3000)
     cases = [(4096, 8, t, True) for t in (118, 236, 472, 1501, 1888)]
-    cases += [(1024, 8, 862, True), (1024, 128, 150, False)]
+    cases += [(1024, 8, 862, True)]
+    cases += [(1024, 128, t, False) for t in (75, 78, 150, 300, 900, 3000)]
     rows, near, worst, err = [], 0, 0.0, 0.0
     stream_ms = stream_plain_ms = 0.0
     for n, d, t, norm in cases:
@@ -317,11 +331,19 @@ def phase_card_vs_cpu(model) -> None:
 # ---------------------------------------------------------------- phase 6
 
 
-def _serve(model, requests: list[np.ndarray], generator: torch.Generator
-           ) -> tuple[list, int]:
+def _snac_rows(model, generator: torch.Generator):
+    """SNAC's forward on a stacked batch, split into per-request results."""
+    def forward(stacked: np.ndarray) -> list:
+        out, codes = model.forward(stacked, generator)
+        return [(out[i], [c[i] for c in codes]) for i in range(stacked.shape[0])]
+    return forward
+
+
+def _serve(forward, requests: list[np.ndarray]) -> tuple[list, int]:
     """Answer concurrent requests as the HTTP server does: equal-length
     requests are stacked into one forward, the batch padded to a power of
-    two by repeating the last request. Returns (results, forward calls)."""
+    two by repeating the last request. ``forward`` maps a stacked [B, T]
+    batch to B per-request results. Returns (results, forward calls)."""
     inbox: queue.Queue = queue.Queue()
 
     def client(x):
@@ -345,11 +367,10 @@ def _serve(model, requests: list[np.ndarray], generator: torch.Generator
     for group in by_len.values():
         xs = [x for x, _ in group]
         target = 1 << (len(xs) - 1).bit_length()
-        stacked = np.stack(xs + [xs[-1]] * (target - len(xs)))
-        out, codes = model.forward(stacked, generator)
+        rows = forward(np.stack(xs + [xs[-1]] * (target - len(xs))))
         forwards += 1
-        for i, (_, fut) in enumerate(group):
-            fut.set_result((out[i], [c[i] for c in codes]))
+        for row, (_, fut) in zip(rows, group):
+            fut.set_result(row)
     for th in threads:
         th.join(timeout=600)
         if th.is_alive():
@@ -381,13 +402,14 @@ def phase_serve(model, card: str) -> dict:
 
     kernels.reset_launch_counts()
     forwards = 0
-    results, f = _serve(model, long_reqs, gen)  # cold: one batch-4 forward
+    forward = _snac_rows(model, gen)
+    results, f = _serve(forward, long_reqs)  # cold: one batch-4 forward
     forwards += f
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    results, f = _serve(model, long_reqs, gen)  # warm
+    results, f = _serve(forward, long_reqs)  # warm
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -395,7 +417,7 @@ def phase_serve(model, card: str) -> dict:
     warm_ms = start.elapsed_time(end)
     for (out, codes), x in zip(results, long_reqs):
         _check_result(model, out, codes, x.shape[-1])
-    short, f = _serve(model, short_reqs, gen)  # 3 requests padded to batch 4
+    short, f = _serve(forward, short_reqs)  # 3 requests padded to batch 4
     forwards += f
     for (out, codes), x in zip(short, short_reqs):
         _check_result(model, out, codes, x.shape[-1])
@@ -407,7 +429,8 @@ def phase_serve(model, card: str) -> dict:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     n_stages, n_units = len(model.config.vq_strides), len(_residual_units(model))
-    want = {"codebook_argmin": n_stages * forwards, "fused_residual_unit": n_units * forwards}
+    want = {"codebook_argmin": n_stages * forwards, "fused_residual_unit": n_units * forwards,
+            "lstm_scan": 0}
     xrt = 40.0 / (warm_ms / 1e3)
     phase("serve", counts == want,
           f"{forwards} forwards (2x 4x10 s batch, 3x3 s padded to 4, process_audio 44.1k); "
@@ -415,6 +438,289 @@ def phase_serve(model, card: str) -> dict:
           f"(CUDA events; host {wall_s * 1e3:.1f} ms) = {xrt:.1f}x realtime on {card}")
     return {"counts": counts, "forwards": forwards, "warm_ms": warm_ms,
             "host_ms": wall_s * 1e3, "xrt": xrt}
+
+
+# ------------------------------------------------------- Encodec phases
+
+
+# max |err| over ys, h_f and c_f measured 1.5e-7 at these shapes on an
+# H100 80GB HBM3 at 700 W (PERF.md, kernel table)
+LSTM_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _slstm(model, which: str):
+    from neuralcodecs_tpu_torch.models.encodec.seanet import SLSTM
+
+    return next(m for m in getattr(model, which).modules() if isinstance(m, SLSTM))
+
+
+def phase_lstm(model, gen: torch.Generator) -> dict:
+    """Kernel 3 against its plain loop at the slice's shapes: the 24 kHz
+    4 x 10 s batch and 1 s stream, the 48 kHz chunk batch and tail; and at
+    the kernel's edge cases: H = 128 with B = 3 rows of an 8-row tile, B = 96
+    at H = 512 (more rows than one pass stages, so each step takes two), and
+    H = 518 (the last block owns fewer units than the others). The phase
+    fails unless the launch plans show those last two paths taken."""
+    from neuralcodecs_tpu_torch.ops.kernels.lstm import (
+        lstm_scan, lstm_scan_plain, lstm_scan_plan)
+
+    dev = torch.device(DEVICE)
+    w512 = _slstm(model, "encoder").lstm.weight_hh_l0.detach()
+    cases = [("24k 4x10 s", 750, 4, 512), ("24k 1 s", 75, 1, 512),
+             ("48k 10 chunks", 150, 10, 512), ("48k tail", 15, 1, 512),
+             ("H=128 B=3", 37, 3, 128), ("B=96, two passes a step", 40, 96, 512),
+             ("H=518, ragged last block", 50, 2, 518)]
+    rows, err, bad = [], 0.0, []
+    chunked = ragged = False
+    for name, t, b, h in cases:
+        u, blocks, bs = lstm_scan_plan(b, h, dev)
+        chunked, ragged = chunked or b > bs, ragged or h % u != 0
+        w_hh = w512 if h == 512 else (torch.rand(4 * h, h, generator=gen, device=dev)
+                                      * 2 - 1) * h ** -0.5
+        gx = 0.5 * torch.randn(t, b, 4 * h, generator=gen, device=dev)
+        h0 = 0.1 * torch.randn(b, h, generator=gen, device=dev)
+        c0 = 0.1 * torch.randn(b, h, generator=gen, device=dev)
+        got = lstm_scan(gx, w_hh, h0, c0)
+        want = lstm_scan_plain(gx, w_hh, h0, c0)
+        torch.cuda.synchronize()
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        close = all(torch.allclose(g, w, **LSTM_TOL) for g, w in zip(got, want))
+        err = max(err, e)
+        if not close:
+            bad.append((name, e))
+        ms = time_ms(lambda: lstm_scan(gx, w_hh, h0, c0), 10)
+        plain_ms = time_ms(lambda: lstm_scan_plain(gx, w_hh, h0, c0), 3, 1)
+        rows.append({"case": name, "T": t, "B": b, "H": h, "U": u, "blocks": blocks, "BS": bs,
+                     "ms": ms, "plain_ms": plain_ms, "max_abs_err": e})
+        print(f"    lstm {name}: T={t} B={b} H={h} (U={u}, {blocks} blocks, BS={bs}): "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"max|err| {e:.2e}{'' if close else '  MISMATCH'}")
+    phase("lstm kernel vs plain", not bad and chunked and ragged,
+          f"{len(cases)} shapes (ys, h_f, c_f) within rtol 1e-5/atol 1e-6 "
+          f"(max|err| {err:.2e}); a case with B > BS: {chunked}, with a ragged last "
+          f"block: {ragged}" + (f"; mismatches {bad}" if bad else ""))
+    return {"rows": rows, "max_abs_err": err, "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"]}
+
+
+def _golden_encodec_config():
+    """tests/test_encodec.py's tiny_config, the config of ecdc_golden.npz."""
+    from neuralcodecs_tpu_torch.models.encodec import EncodecConfig
+
+    return EncodecConfig(sampling_rate=16000, channels=1, bandwidth=80.0,
+                         target_bandwidths=[20.0, 80.0], codebook_size=32, codebook_dim=16,
+                         hidden_size=16, num_filters=8, num_lstm_layers=2,
+                         num_residual_layers=1, upsampling_ratios=[4, 2],
+                         use_causal_conv=True, norm_type="weight_norm")
+
+
+def phase_ecdc_golden() -> None:
+    """The port on the card reproduces the frozen raw .ecdc stream byte for
+    byte, and decompresses it to the direct decode (the SLSTMs at H = 32)."""
+    from neuralcodecs_tpu_torch.core.weights import from_jax_params, transposed_groups
+    from neuralcodecs_tpu_torch.models.encodec import Encodec
+
+    g = np.load(ROOT / "tests" / "goldens" / "ecdc_golden.npz")
+    model = Encodec(_golden_encodec_config(), device=DEVICE).eval()
+    sd = from_jax_params({k[3:]: g[k] for k in g.files if k.startswith("sd/")},
+                         transposed_groups(model))
+    model.load_state_dict(sd, strict=True)
+    audio = g["audio"]
+    blob = model.compress(audio, use_lm=False)
+    same = blob == g["blob_raw"].tobytes()
+    direct = model.decode(model.encode(audio))[..., : audio.shape[0]]
+    out = model.decompress(g["blob_raw"].tobytes())
+    close = torch.allclose(out, direct, rtol=1e-5, atol=1e-6)
+    phase("ecdc golden", same and close,
+          f"compress == blob_raw ({len(blob)} B): {same}; decompress vs direct decode within "
+          f"rtol 1e-5/atol 1e-6: {close} (max|err| {float((out - direct).abs().max()):.2e})")
+
+
+def _encodec_near_ties(model, audio: np.ndarray) -> tuple[int, int]:
+    """(rows whose two best plain-L2 scores lie within 1e-5 relative, rows),
+    over every RVQ stage of encode(audio)."""
+    from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin_plain
+
+    x = model._prepare(audio)
+    residual = model.encoder(x).float().transpose(1, 2).reshape(-1, model.config.codebook_dim)
+    near = rows = 0
+    for layer in model.quantizer.layers[: model._n_q()]:
+        embed = layer.codebook.embed
+        scores = _plain_scores(residual, embed)
+        top2 = torch.topk(scores, 2, dim=-1, largest=False).values
+        near += int(((top2[:, 1] - top2[:, 0]) < 1e-5 * top2[:, 0].abs().clamp_min(1e-12)).sum())
+        rows += residual.shape[0]
+        residual = residual - embed[codebook_argmin_plain(residual, embed).long()]
+    return near, rows
+
+
+def phase_encodec_card_vs_cpu(model) -> None:
+    """Full-width Encodec-24k: the port on the card (kernels) against the
+    port on the CPU (plain versions), on 1 s of audio."""
+    from neuralcodecs_tpu_torch.models.encodec import Encodec
+
+    rng = np.random.default_rng(SEED + 2)
+    audio = (0.3 * rng.standard_normal(model.config.sample_rate)).astype(np.float32)
+    cpu = Encodec(model.config).eval()
+    cpu.load_state_dict(model.state_dict())
+    codes_gpu = model.encode(audio)[0].codes.cpu()
+    codes_cpu = cpu.encode(audio)[0].codes
+    same = [bool((codes_gpu[:, k] == codes_cpu[:, k]).all()) for k in range(codes_cpu.shape[1])]
+    near, rows = _encodec_near_ties(model, audio)
+    ref, got = cpu.forward(audio).numpy().ravel(), model.forward(audio).cpu().numpy().ravel()
+    snr = _snr_db(ref, got)
+    phase("encodec full-width card vs cpu", all(same) and snr > 55.0,
+          f"codes equal per stage {same}; near-tie rows (top-2 gap < 1e-5 rel.) {near} of "
+          f"{rows}; SNR {snr:.1f} dB (> 55), max|err| {np.abs(ref - got).max():.2e}")
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Swap the plain versions in where Encodec calls the LSTM and codebook
+    kernels, for a kernel-vs-plain timing of the same round trip."""
+    from neuralcodecs_tpu_torch.models.encodec import seanet
+    from neuralcodecs_tpu_torch.ops import vq
+    from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin_plain
+    from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan_plain
+
+    saved = seanet.lstm_scan, vq.codebook_argmin
+    seanet.lstm_scan, vq.codebook_argmin = lstm_scan_plain, codebook_argmin_plain
+    try:
+        yield
+    finally:
+        seanet.lstm_scan, vq.codebook_argmin = saved
+
+
+def _encodec_rows(model):
+    def forward(stacked: np.ndarray) -> list:
+        out = model.forward(stacked[:, None, :])
+        return [out[i, 0] for i in range(stacked.shape[0])]
+    return forward
+
+
+def _timed_roundtrip(model, batch: np.ndarray) -> tuple[float, float]:
+    """(ms by CUDA events, peak GB) of one warm forward of ``batch``."""
+    model.forward(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    model.forward(batch)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_encodec_serve(model, card: str) -> dict:
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    sr = model.config.sample_rate
+    rng = np.random.default_rng(SEED + 3)
+    long_reqs = [(0.3 * rng.standard_normal(10 * sr)).astype(np.float32) for _ in range(4)]
+    short_reqs = [(0.3 * rng.standard_normal(3 * sr)).astype(np.float32) for _ in range(3)]
+    foreign = (0.3 * rng.standard_normal(16000 * 2)).astype(np.float32)
+    n_q = model._n_q()
+    forward = _encodec_rows(model)
+
+    kernels.reset_launch_counts()
+    results, forwards = _serve(forward, long_reqs)
+    for out, x in zip(results, long_reqs):
+        if tuple(out.shape) != x.shape or not bool(torch.isfinite(out).all()):
+            raise PhaseError(f"bad audio: shape {tuple(out.shape)}, want {x.shape}")
+    short, f = _serve(forward, short_reqs)  # 3 requests padded to batch 4
+    forwards += f
+    for out, x in zip(short, short_reqs):
+        if tuple(out.shape) != x.shape or not bool(torch.isfinite(out).all()):
+            raise PhaseError(f"bad audio: shape {tuple(out.shape)}, want {x.shape}")
+    resampled = model.process_audio(foreign, 16000)
+    forwards += 1
+    if resampled.shape != (2 * sr,) or not np.isfinite(resampled).all():
+        raise PhaseError(f"process_audio: shape {resampled.shape}, want ({2 * sr},)")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"codebook_argmin": n_q * forwards, "fused_residual_unit": 0,
+            "lstm_scan": 4 * forwards}
+    ok = counts == want
+
+    # the warm batch-4 x 10 s round trip, kernels against plain versions, in
+    # turns plain, kernel, kernel, plain
+    batch = np.stack(long_reqs)[:, None, :]
+    times = {"kernel": [], "plain": []}
+    peak = {}
+    for mode in ("plain", "kernel", "kernel", "plain"):
+        if mode == "plain":
+            with _plain_kernels():
+                ms, gb = _timed_roundtrip(model, batch)
+        else:
+            ms, gb = _timed_roundtrip(model, batch)
+        times[mode].append(ms)
+        peak[mode] = gb
+    kernel_ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    prof = _profile_roundtrip(model, batch, {"kernel": kernel_ms, "plain": plain_ms})
+    phase("encodec serve", ok,
+          f"{forwards} forwards (4x10 s batch, 3x3 s padded to 4, process_audio 16k); "
+          f"launches {counts} == {want}; warm batch-4 10 s round trip (CUDA events) kernels "
+          f"{times['kernel']} ms, plain {times['plain']} ms; peak {peak['kernel']:.2f} vs "
+          f"{peak['plain']:.2f} GB; {40.0 / (kernel_ms / 1e3):.1f}x realtime on {card}")
+    return {"counts": counts, "forwards": forwards, "times_ms": times, "peak_gb": peak,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "profile": prof}
+
+
+def _profile_roundtrip(model, batch: np.ndarray, wall_ms: dict) -> dict:
+    """torch.profiler over 3 warm forwards on each path: device time per
+    forward, its top kernels, and the idle share against the unprofiled
+    round trip ``wall_ms`` (the profiler's own host cost would inflate a wall
+    time taken under it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for mode in ("kernel", "plain"):
+        ctx = _plain_kernels() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            model.forward(batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    model.forward(batch)
+                torch.cuda.synchronize()
+        events = prof.key_averages()
+        device_ms = sum(e.self_device_time_total for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 3
+        idle = 1.0 - device_ms / wall_ms[mode]
+        out[mode] = {"device_ms": device_ms, "idle": idle,
+                     "top": [(e.key, e.self_device_time_total / 1e3 / 3, e.count // 3)
+                             for e in sorted(events, key=lambda e: -e.self_device_time_total)
+                             [:25]]}
+        print(f"    profile {mode}: device {device_ms:.2f} ms per forward, idle {idle:.1%} "
+              f"of the unprofiled {wall_ms[mode]:.2f} ms; top: " + ", ".join(
+                  f"{k[:40]} {ms:.2f}" for k, ms, _ in out[mode]["top"][:4]))
+    return out
+
+
+def phase_encodec_48k(card: str) -> dict:
+    """Full-width Encodec-48k, stereo, 2.5 s at batch 1 through forward: two
+    full chunks in one batch and a tail on its own."""
+    from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    model = Encodec(EncodecConfig.encodec_48khz(), device=DEVICE, seed=SEED).eval()
+    rng = np.random.default_rng(SEED + 4)
+    n = int(2.5 * model.config.sample_rate)
+    audio = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
+    model.forward(audio)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = model.forward(audio)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n_q = model._n_q()
+    want = {"codebook_argmin": 2 * n_q, "fused_residual_unit": 0, "lstm_scan": 8}
+    finite = bool(torch.isfinite(out).all())
+    ms = time_ms(lambda: model.forward(audio), 5, 0)
+    phase("encodec-48k", tuple(out.shape) == (1, 2, n) and finite and counts == want,
+          f"forward of 2.5 s stereo -> {tuple(out.shape)}, finite {finite}; launches {counts} "
+          f"== {want}; {ms:.1f} ms per forward (CUDA events, mean of 5) on {card}")
+    return {"counts": counts, "ms": ms}
 
 
 # ------------------------------------------------------------------- main
@@ -429,6 +735,7 @@ def main() -> int:
         return 1
     torch.set_grad_enabled(False)
     try:
+        from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig
         from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig
 
         info = phase_device()
@@ -440,26 +747,41 @@ def main() -> int:
         phase_golden()
         phase_card_vs_cpu(model)
         serve = phase_serve(model, info["smi"])
+        enc = Encodec(EncodecConfig.encodec_24khz(), device=DEVICE, seed=SEED).eval()
+        lstm = phase_lstm(enc, gen)
+        phase_ecdc_golden()
+        phase_encodec_card_vs_cpu(enc)
+        enc_serve = phase_encodec_serve(enc, info["smi"])
+        enc48 = phase_encodec_48k(info["smi"])
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    paths = (serve, enc_serve, enc48)
+    launches = {name: sum(p["counts"][name] for p in paths)
+                for name in ("codebook_argmin", "fused_residual_unit", "lstm_scan")}
     kernels_line = {"kernels": [
         {"name": "codebook_argmin", "route": "cuda",
          "source": "neuralcodecs_tpu_torch/csrc/codebook.cu",
          "replaces": "neuralcodecs_tpu/ops/pallas/codebook.py:46",
-         "launches": serve["counts"]["codebook_argmin"], "max_abs_err": cb["max_abs_err"],
-         "ms": cb["ms"], "plain_ms": cb["plain_ms"]},
+         "launches": launches["codebook_argmin"], "max_abs_err": cb["max_abs_err"],
+         "ms": cb["ms"], "plain_ms": cb["plain_ms"], "shapes": cb["rows"]},
         {"name": "fused_residual_unit", "route": "cuda",
          "source": "neuralcodecs_tpu_torch/csrc/resunit.cu",
          "replaces": "neuralcodecs_tpu/ops/pallas/resunit.py:154",
-         "launches": serve["counts"]["fused_residual_unit"], "max_abs_err": ru["max_abs_err"],
-         "ms": ru["ms"], "plain_ms": ru["plain_ms"]},
+         "launches": launches["fused_residual_unit"], "max_abs_err": ru["max_abs_err"],
+         "ms": ru["ms"], "plain_ms": ru["plain_ms"], "shapes": ru["rows"]},
+        {"name": "lstm_scan", "route": "cuda",
+         "source": "neuralcodecs_tpu_torch/csrc/lstm.cu",
+         "replaces": "neuralcodecs_tpu/ops/pallas/lstm.py:103",
+         "launches": launches["lstm_scan"], "max_abs_err": lstm["max_abs_err"],
+         "ms": lstm["ms"], "plain_ms": lstm["plain_ms"], "shapes": lstm["rows"]},
     ]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"device": info, "codebook": cb, "resunit": ru, "serve": serve}, indent=1))
+            {"device": info, "codebook": cb, "resunit": ru, "serve": serve, "lstm": lstm,
+             "encodec_serve": enc_serve, "encodec_48k": enc48}, indent=1))
     print(info["smi"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -15,5 +15,9 @@ class LoadError(NeuralCodecError):
         super().__init__(message if source is None else f"{message} (source={source})")
 
 
+class CodecError(NeuralCodecError):
+    """Raised when encode/decode fails at runtime (bad shapes, streams...)."""
+
+
 class KernelBuildError(NeuralCodecError):
     """Raised when the CUDA kernels cannot be compiled or loaded."""

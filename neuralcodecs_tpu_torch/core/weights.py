@@ -81,6 +81,14 @@ def _conv_transpose_from_hio(w: np.ndarray, groups: int) -> np.ndarray:
     return w[:, :, ::-1]
 
 
+# 2-D parameters the JAX package stores in torch's own layout: SNAC's
+# codebook embeddings, Encodec's codebooks [K, D] with their EMA averages,
+# and Encodec's RVQ projections (torch Linear [out, in]). Every other 2-D
+# weight is a Linear or LSTM weight stored transposed, [in, out].
+_TORCH_LAYOUT_2D = (".codebook.weight", ".codebook.embed", ".codebook.embed_avg",
+                    ".project_in.weight", ".project_out.weight")
+
+
 def from_jax_params(params: Mapping[str, np.ndarray],
                     transposed: Mapping[str, int] | None = None
                     ) -> dict[str, torch.Tensor]:
@@ -88,10 +96,10 @@ def from_jax_params(params: Mapping[str, np.ndarray],
 
     params: name -> array in the JAX layouts. transposed: the weight keys of
     transposed convs with their groups (``transposed_groups(model)``); every
-    other 3-D weight is a regular conv. 2-D ``*.codebook.weight`` embeddings
-    keep their layout (the JAX package stores them as torch does); every
-    other 2-D weight is a Linear ``[in, out]``. Snake ``alpha`` [C] becomes
-    [1, C, 1].
+    other 3-D weight is a regular conv. 2-D weights named in
+    ``_TORCH_LAYOUT_2D`` keep their layout; every other 2-D weight (Linear,
+    LSTM ``weight_ih_l*`` / ``weight_hh_l*``) is ``[in, out]`` and is
+    transposed to torch's ``[out, in]``. Snake ``alpha`` [C] becomes [1, C, 1].
     """
     transposed = transposed or {}
     out: dict[str, torch.Tensor] = {}
@@ -103,7 +111,7 @@ def from_jax_params(params: Mapping[str, np.ndarray],
             w = w.reshape(1, -1, 1)
         elif w.ndim == 3:
             w = _conv_from_hio(w)
-        elif w.ndim == 2 and not key.endswith(".codebook.weight"):
+        elif w.ndim == 2 and not ("." + key).endswith(_TORCH_LAYOUT_2D):
             w = w.T
         out[key] = torch.from_numpy(np.array(w))  # a writable, contiguous copy
     return out

@@ -30,6 +30,7 @@ from neuralcodecs_tpu_torch.core.weights import fold_weight_norm, from_jax_param
 from neuralcodecs_tpu_torch.ops import kernels
 from neuralcodecs_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin, codebook_argmin_plain
+from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan, lstm_scan_plain
 from neuralcodecs_tpu_torch.ops.kernels.resunit import fused_residual_unit, residual_unit_plain
 from neuralcodecs_tpu_torch.ops.snake import snake
 
@@ -198,6 +199,68 @@ def test_resunit_matches_jax_residual_unit(rng, dilation, groups):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+_NO_LAUNCHES = {"codebook_argmin": 0, "fused_residual_unit": 0, "lstm_scan": 0}
+
+
+def _lstm_inputs(rng, t, b, h):
+    """gates_x [T, B, 4H], w_hh in the JAX layout [H, 4H], h0, c0 [B, H]."""
+    return (_rand(rng, t, b, 4 * h, scale=0.3), _rand(rng, h, 4 * h, scale=0.1),
+            _rand(rng, b, h, scale=0.2), _rand(rng, b, h, scale=0.2))
+
+
+def _lstm_port_args(gx, w_hh, h0, c0):
+    """The port takes w_hh in torch's layout [4H, H]."""
+    return _t(gx), _t(np.ascontiguousarray(w_hh.T)), _t(h0), _t(c0)
+
+
+def _assert_lstm_close(got, want):
+    for g, w, name in zip(got, want, ("ys", "h_f", "c_f")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("t,b", [(6, 1), (15, 4)])
+def test_lstm_plain_matches_jax_scan(rng, t, b):
+    from neuralcodecs_tpu.models.encodec.seanet import _lstm_recurrence
+
+    inputs = _lstm_inputs(rng, t, b, 128)
+    want = _lstm_recurrence(*(jnp.asarray(a) for a in inputs))
+    _assert_lstm_close(lstm_scan_plain(*_lstm_port_args(*inputs)), want)
+
+
+@pytest.mark.parametrize("t,b", [(6, 1), (15, 4)])
+def test_lstm_plain_matches_pallas_interpret(rng, t, b):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from neuralcodecs_tpu.ops.pallas.lstm import lstm_scan_pallas
+
+    inputs = _lstm_inputs(rng, t, b, 128)
+    with pltpu.force_tpu_interpret_mode():
+        want = lstm_scan_pallas(*(jnp.asarray(a) for a in inputs))
+    _assert_lstm_close(lstm_scan_plain(*_lstm_port_args(*inputs)), want)
+
+
+def test_slstm_matches_jax(rng):
+    """The port's SLSTM (per-layer input projection by matmul, recurrence by
+    lstm_scan) against the JAX package's, from the same JAX parameters."""
+    from neuralcodecs_tpu.models.encodec.seanet import SLSTM as JSLSTM
+
+    from neuralcodecs_tpu_torch.models.encodec.seanet import SLSTM
+
+    dim = 32
+    jlayer = JSLSTM("s", dim, 2)
+    params = {}
+    jlayer.init(jax.random.key(1), params)
+    x = _rand(rng, 3, dim, 21)
+    want = _btc(jlayer(params, jnp.asarray(_btc(x))))
+    layer = SLSTM(dim, 2)
+    layer.load_state_dict(from_jax_params({k[2:]: np.asarray(v) for k, v in params.items()}),
+                          strict=True)
+    with torch.no_grad():
+        got = layer(_t(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_run_plain_on_cpu_without_counting(rng):
     kernels.reset_launch_counts()
     x, cb = _t(_rand(rng, 64, 8)), _t(_rand(rng, 256, 8))
@@ -208,7 +271,10 @@ def test_wrappers_run_plain_on_cpu_without_counting(rng):
     args = _resunit_port_args(p)
     torch.testing.assert_close(fused_residual_unit(xr, *args, dilation=3),
                                residual_unit_plain(xr, *args, dilation=3), rtol=0, atol=0)
-    assert kernels.launch_counts() == {"codebook_argmin": 0, "fused_residual_unit": 0}
+    largs = _lstm_port_args(*_lstm_inputs(rng, 5, 2, 16))
+    for got, want in zip(lstm_scan(*largs), lstm_scan_plain(*largs)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert kernels.launch_counts() == _NO_LAUNCHES
 
 
 def test_wrappers_refuse_tensors_off_cpu_and_cuda(rng):
@@ -221,7 +287,11 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda(rng):
     with pytest.raises(ValueError):
         fused_residual_unit(torch.empty(1, 16, 20, device="meta"),
                             *_resunit_port_args(p), dilation=1)
-    assert kernels.launch_counts() == {"codebook_argmin": 0, "fused_residual_unit": 0}
+    h = 16
+    with pytest.raises(ValueError):
+        lstm_scan(torch.empty(4, 2, 4 * h, device="meta"), torch.empty(4 * h, h),
+                  torch.empty(2, h), torch.empty(2, h))
+    assert kernels.launch_counts() == _NO_LAUNCHES
 
 
 def test_kernel_build_failure_raises(tmp_path, monkeypatch):
