@@ -10,12 +10,17 @@ itself on the CPU, then serves a few requests through full-width SNAC-24k
 checks full-width Encodec-24k against itself on the CPU, serves a few
 requests through it and times its round trip with the kernels and with
 the plain versions, then runs full-width stereo Encodec-48k through its
-chunked forward. Each served path runs with the launch counters set to 0
-just before it and read just after, and fails unless every kernel of the
-path launched as often as the path calls it; the kernels line reports the
-sum over those paths, and each kernel's time against its plain version at
-every shape checked. A torch.profiler pass over the Encodec-24k round
-trip gives its device time by kernel and its idle share. Exits non-zero at
+chunked forward. DSP (BASELINE.json config 4, 64 clips of 10 s): holds
+the envelope and biquad kernels bit-exact against their plain loops, runs
+the resample -> compressor -> mel chain at 44.1 -> 24 kHz against the CPU
+and times it with the kernels and with the plain loops, then measures and
+normalises the BS.1770 loudness of the resampled batch. Each served path
+runs with the launch counters set to 0 just before it and read just after,
+and fails unless every kernel of the path launched as often as the path
+calls it; the kernels line reports the sum over those paths, and each
+kernel's time against its plain version at every shape checked.
+torch.profiler passes over the Encodec-24k round trip, the DSP chain and
+the loudness give device time by kernel and idle share. Exits non-zero at
 the first failed phase, and at once when no CUDA device is available. The
 last line is a JSON object naming the device.
 """
@@ -25,6 +30,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import queue
 import subprocess
 import sys
@@ -40,6 +46,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 20260816
 DEVICE = "cuda"
+
+
+KERNELS = ("codebook_argmin", "fused_residual_unit", "lstm_scan", "envelope_follow",
+           "biquad_df2t")
+_NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 class PhaseError(RuntimeError):
@@ -429,8 +440,8 @@ def phase_serve(model, card: str) -> dict:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     n_stages, n_units = len(model.config.vq_strides), len(_residual_units(model))
-    want = {"codebook_argmin": n_stages * forwards, "fused_residual_unit": n_units * forwards,
-            "lstm_scan": 0}
+    want = {**_NO_LAUNCHES, "codebook_argmin": n_stages * forwards,
+            "fused_residual_unit": n_units * forwards}
     xrt = 40.0 / (warm_ms / 1e3)
     phase("serve", counts == want,
           f"{forwards} forwards (2x 4x10 s batch, 3x3 s padded to 4, process_audio 44.1k); "
@@ -638,8 +649,7 @@ def phase_encodec_serve(model, card: str) -> dict:
         raise PhaseError(f"process_audio: shape {resampled.shape}, want ({2 * sr},)")
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {"codebook_argmin": n_q * forwards, "fused_residual_unit": 0,
-            "lstm_scan": 4 * forwards}
+    want = {**_NO_LAUNCHES, "codebook_argmin": n_q * forwards, "lstm_scan": 4 * forwards}
     ok = counts == want
 
     # the warm batch-4 x 10 s round trip, kernels against plain versions, in
@@ -666,34 +676,58 @@ def phase_encodec_serve(model, card: str) -> dict:
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "profile": prof}
 
 
-def _profile_roundtrip(model, batch: np.ndarray, wall_ms: dict) -> dict:
-    """torch.profiler over 3 warm forwards on each path: device time per
-    forward, its top kernels, and the idle share against the unprofiled
-    round trip ``wall_ms`` (the profiler's own host cost would inflate a wall
-    time taken under it)."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_profile(fn, wall_ms: float, kernel: str | None, launches: int = 0,
+                    reps: int = 3) -> dict:
+    """torch.profiler (device activity) over ``reps`` warm calls of fn():
+    device time per call, its top kernels, and the idle share against the
+    unprofiled ``wall_ms`` of one call (the profiler's own host cost would
+    inflate a wall time taken under it). A trace without a warm-up step has
+    been seen to lose the first call's launches, so one call runs as the
+    profiler's warm-up step, and where ``kernel`` is named the trace counts
+    as complete only if it holds ``launches`` launches of it per call; an
+    incomplete trace keeps neither its device time nor the idle share. With
+    no kernel named (a path of plain versions) completeness is not checked
+    (None)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+        for _ in range(1 + reps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = prof.key_averages()
+    seen = sum(e.count for e in events if kernel and kernel in e.key)
+    complete = seen == launches * reps if kernel else None
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    return {"complete": complete, "launches_seen": seen, "launches_expected": launches * reps,
+            "device_ms": device_ms if complete is not False else None,
+            "idle": 1.0 - device_ms / wall_ms if complete is not False else None,
+            "top": [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
+                    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]]}
+
+
+def _print_profile(label: str, prof: dict, wall_ms: float) -> None:
+    if prof["complete"] is False:
+        print(f"    profile {label}: incomplete trace ({prof['launches_seen']} of "
+              f"{prof['launches_expected']} launches of the path's kernel), not kept")
+        return
+    print(f"    profile {label}: device {prof['device_ms']:.2f} ms per call, idle "
+          f"{prof['idle']:.1%} of the unprofiled {wall_ms:.2f} ms; top: " + ", ".join(
+              f"{k[:40]} {ms:.2f}" for k, ms, _ in prof["top"][:4]))
+
+
+def _profile_roundtrip(model, batch: np.ndarray, wall_ms: dict) -> dict:
+    """The device profile of 3 warm forwards on each path."""
     out = {}
     for mode in ("kernel", "plain"):
         ctx = _plain_kernels() if mode == "plain" else contextlib.nullcontext()
         with ctx:
-            model.forward(batch)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    model.forward(batch)
-                torch.cuda.synchronize()
-        events = prof.key_averages()
-        device_ms = sum(e.self_device_time_total for e in events
-                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 3
-        idle = 1.0 - device_ms / wall_ms[mode]
-        out[mode] = {"device_ms": device_ms, "idle": idle,
-                     "top": [(e.key, e.self_device_time_total / 1e3 / 3, e.count // 3)
-                             for e in sorted(events, key=lambda e: -e.self_device_time_total)
-                             [:25]]}
-        print(f"    profile {mode}: device {device_ms:.2f} ms per forward, idle {idle:.1%} "
-              f"of the unprofiled {wall_ms[mode]:.2f} ms; top: " + ", ".join(
-                  f"{k[:40]} {ms:.2f}" for k, ms, _ in out[mode]["top"][:4]))
+            out[mode] = _device_profile(lambda: model.forward(batch), wall_ms[mode],
+                                        "lstm_scan_kernel" if mode == "kernel" else None, 4)
+        _print_profile(mode, out[mode], wall_ms[mode])
     return out
 
 
@@ -714,13 +748,225 @@ def phase_encodec_48k(card: str) -> dict:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     n_q = model._n_q()
-    want = {"codebook_argmin": 2 * n_q, "fused_residual_unit": 0, "lstm_scan": 8}
+    want = {**_NO_LAUNCHES, "codebook_argmin": 2 * n_q, "lstm_scan": 8}
     finite = bool(torch.isfinite(out).all())
     ms = time_ms(lambda: model.forward(audio), 5, 0)
     phase("encodec-48k", tuple(out.shape) == (1, 2, n) and finite and counts == want,
           f"forward of 2.5 s stereo -> {tuple(out.shape)}, finite {finite}; launches {counts} "
           f"== {want}; {ms:.1f} ms per forward (CUDA events, mean of 5) on {card}")
     return {"counts": counts, "ms": ms}
+
+
+# ----------------------------------------------------------- DSP phases
+
+
+# BASELINE.json config 4 (bench.py, bench_dsp): 64 clips of 10 s at
+# 44.1 kHz, resampled to 24 kHz, compressed, then an 80-band mel
+DSP_BATCH, DSP_SECONDS, DSP_SRC, DSP_DST = 64, 10, 44100, 24000
+# (N, T) at which kernels 4-5 are held against their plain loops: the
+# config-4 batch, one clip, a single sample, rows past whole blocks of 4
+# (130 = 32 blocks + 2 rows), a whole number of 256-sample tiles, and a T
+# that is a multiple of neither the tile nor the 4-sample step group
+RECURRENCE_SHAPES = [(64, 240_000), (1, 24_000), (3, 1), (130, 5000), (32, 2048), (7, 777)]
+
+
+def _timed(fn):
+    """(fn(), ms of that one call by CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _recurrence_phase(name: str, kernel, plain, cases: list) -> dict:
+    """Kernel against its plain loop, bit-exact (torch.equal), for each
+    (label, x, args) case; the plain loop runs once a case (seconds at the
+    config-4 T) and that run is its time."""
+    rows, bad, err = [], [], 0.0
+    for label, x, args in cases:
+        got = kernel(x, *args)
+        want, plain_ms = _timed(lambda: plain(x, *args))
+        exact = torch.equal(got, want)
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        if not exact:
+            bad.append((label, tuple(x.shape), e))
+        ms = time_ms(lambda: kernel(x, *args), 10)
+        rows.append({"case": label, "N": x.shape[0], "T": x.shape[1], "ms": ms,
+                     "plain_ms": plain_ms, "max_abs_err": e})
+        print(f"    {name} {label} N={x.shape[0]} T={x.shape[1]}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, " + ("bit-exact" if exact else f"MISMATCH max|err| {e:.2e}"))
+    phase(f"{name} kernel vs plain", not bad,
+          f"{len(cases)} cases bit-exact (torch.equal)" + (f"; mismatches {bad}" if bad else ""))
+    return {"rows": rows, "max_abs_err": err, "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"]}
+
+
+def _compressor_gains(sample_rate: int) -> tuple[float, float]:
+    """The attack and release gains apply_compressor gives its follower."""
+    return (1.0 - math.exp(-1.0 / int(0.005 * sample_rate)),
+            1.0 - math.exp(-1.0 / int(0.050 * sample_rate)))
+
+
+def phase_envelope(gen: torch.Generator) -> dict:
+    from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow, envelope_follow_plain
+
+    gains = _compressor_gains(DSP_DST)
+    cases = [("compressor 24k", 0.25 * torch.randn(n, t, generator=gen, device=DEVICE), gains)
+             for n, t in RECURRENCE_SHAPES]
+    return _recurrence_phase("envelope", envelope_follow, envelope_follow_plain, cases)
+
+
+def _biquads() -> list[tuple[str, tuple, tuple]]:
+    """Both K-weighting stages and one random stable biquad (poles at
+    radius 0.95)."""
+    from neuralcodecs_tpu_torch.dsp import loudness
+
+    rng = np.random.default_rng(SEED + 6)
+    theta = rng.uniform(0.1, 3.0)
+    rand = (tuple(0.5 * rng.standard_normal(3)), (1.0, -1.9 * math.cos(theta), 0.95 ** 2))
+    return [("k-shelf", loudness._HIGH_SHELF_B, loudness._HIGH_SHELF_A),
+            ("k-highpass", loudness._HIGH_PASS_B, loudness._HIGH_PASS_A),
+            ("random", *rand)]
+
+
+def phase_biquad(gen: torch.Generator) -> dict:
+    from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t, biquad_df2t_plain
+
+    cases = []
+    for n, t in RECURRENCE_SHAPES:
+        x = 0.25 * torch.randn(n, t, generator=gen, device=DEVICE)
+        cases += [(label, x, (b, a)) for label, b, a in _biquads()]
+    return _recurrence_phase("biquad", biquad_df2t, biquad_df2t_plain, cases)
+
+
+@contextlib.contextmanager
+def _plain_dsp_kernels():
+    """Swap the plain versions in where the DSP filters call the envelope
+    and biquad kernels, for a kernel-vs-plain timing of the same path."""
+    from neuralcodecs_tpu_torch.dsp import filters
+    from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t_plain
+    from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow_plain
+
+    saved = filters.envelope_follow, filters.biquad_df2t
+    filters.envelope_follow, filters.biquad_df2t = envelope_follow_plain, biquad_df2t_plain
+    try:
+        yield
+    finally:
+        filters.envelope_follow, filters.biquad_df2t = saved
+
+
+def _dsp_stages():
+    from neuralcodecs_tpu_torch.dsp.effects import apply_compressor
+    from neuralcodecs_tpu_torch.dsp.mel import mel_spectrogram
+    from neuralcodecs_tpu_torch.dsp.resample import resample_poly
+
+    return (lambda x: resample_poly(x, DSP_SRC, DSP_DST),
+            lambda y: apply_compressor(y, DSP_DST, threshold=-20.0, ratio=4.0),
+            lambda c: mel_spectrogram(c, DSP_DST, n_mels=80))
+
+
+def _dsp_chain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(resampled, mel) of the config-4 chain on [B, T] audio at 44.1 kHz."""
+    resample, compress, mel = _dsp_stages()
+    y = resample(x)
+    return y, mel(compress(y))
+
+
+def _peak_gb(fn) -> float:
+    """Peak device memory of one call of fn(), above what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_dsp_pipeline(card: str) -> tuple[dict, torch.Tensor]:
+    """The config-4 chain at 64 x 10 s through the port's public functions;
+    returns its details and the resampled batch."""
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 5)
+    audio = 0.25 * rng.standard_normal((DSP_BATCH, DSP_SRC * DSP_SECONDS), dtype=np.float32)
+    x = torch.from_numpy(audio).to(DEVICE)
+    _dsp_chain(x)  # warm: cuDNN and cuFFT plans
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    (y, mel), ms = _timed(lambda: _dsp_chain(x))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    want = {**_NO_LAUNCHES, "envelope_follow": 1}
+    frames = 1 + y.shape[-1] // 512
+    shape_ok = tuple(mel.shape) == (DSP_BATCH, 80, frames) and bool(torch.isfinite(mel).all())
+
+    y_cpu, mel_cpu = _dsp_chain(x[:2].cpu())  # the CPU runs the plain loops
+    close = torch.allclose(mel[:2].cpu(), mel_cpu, rtol=1e-4, atol=1e-5)
+    mel_err = float((mel[:2].cpu() - mel_cpu).abs().max())
+
+    stages = {}
+    resample, compress, to_mel = _dsp_stages()
+    for name, fn in (("resample", lambda: resample(x)), ("compressor", lambda: compress(y)),
+                     ("mel", lambda: to_mel(y))):
+        stages[name] = {"ms": time_ms(fn, 5, 1), "peak_gb": _peak_gb(fn)}
+    peak = _peak_gb(lambda: _dsp_chain(x))
+    with _plain_dsp_kernels():
+        _, plain_ms = _timed(lambda: _dsp_chain(x))
+    prof = _device_profile(lambda: _dsp_chain(x), ms, "envelope_kernel", 1)
+    _print_profile("dsp pipeline", prof, ms)
+    audio_s = DSP_BATCH * DSP_SECONDS
+    phase("dsp pipeline", counts == want and shape_ok and close,
+          f"resample 44.1k->24k, compressor, mel of {DSP_BATCH} x {DSP_SECONDS} s -> "
+          f"{tuple(mel.shape)}, finite; launches {counts} == {want}; first 2 clips card vs "
+          f"cpu mel within rtol 1e-4/atol 1e-5: {close} (max|err| {mel_err:.2e}); warm chain "
+          f"{ms:.2f} ms (CUDA events; host {host_ms:.2f} ms) = {audio_s / (ms / 1e3):.0f} s of "
+          f"audio per s, plain versions {plain_ms:.1f} ms; stages " + ", ".join(
+              f"{k} {v['ms']:.2f} ms / {v['peak_gb']:.3f} GB" for k, v in stages.items())
+          + f"; peak {peak:.3f} GB on {card}")
+    return ({"counts": counts, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+             "audio_s_per_s": audio_s / (ms / 1e3), "peak_gb": peak, "stages": stages,
+             "mel_max_abs_err": mel_err, "profile": prof}, y)
+
+
+def phase_loudness(resampled: torch.Tensor, card: str) -> dict:
+    """BS.1770 loudness and normalisation of the resampled config-4 batch as
+    [64, 1, 240 000] at 24 kHz."""
+    from neuralcodecs_tpu_torch.dsp import AudioSignal
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    sig = AudioSignal(resampled[:, None, :], DSP_DST)
+    sig.loudness()  # warm
+    kernels.reset_launch_counts()
+    lufs, ms = _timed(sig.loudness)
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    relufs = sig.normalize(-24.0).loudness()
+    counts_norm = kernels.launch_counts()
+    want = {**_NO_LAUNCHES, "biquad_df2t": 2}
+    want_norm = {**_NO_LAUNCHES, "biquad_df2t": 4}
+    cpu = AudioSignal(resampled[:2, None, :].cpu(), DSP_DST).loudness()
+    diff = float((lufs[:2].cpu() - cpu).abs().max())
+    off = float((relufs + 24.0).abs().max())
+    peak = _peak_gb(sig.loudness)
+    with _plain_dsp_kernels():
+        lufs_plain, plain_ms = _timed(sig.loudness)
+    same = torch.equal(lufs, lufs_plain)
+    finite = bool(torch.isfinite(lufs).all())
+    prof = _device_profile(sig.loudness, ms, "biquad_kernel", 2)
+    _print_profile("loudness", prof, ms)
+    phase("loudness", counts == want and counts_norm == want_norm and diff <= 1e-3
+          and off <= 0.1 and same and finite,
+          f"{tuple(sig.audio_data.shape)} at {DSP_DST} Hz: LUFS {float(lufs.min()):.3f} .. "
+          f"{float(lufs.max()):.3f}; launches per loudness() {counts} == {want}, normalize + "
+          f"loudness {counts_norm} == {want_norm}; first 2 clips card vs cpu |dLUFS| "
+          f"{diff:.2e} (<= 1e-3); after normalize(-24) max |LUFS + 24| {off:.2e} (<= 0.1); "
+          f"equal to the plain loops' LUFS: {same}; {ms:.2f} ms (CUDA events), plain versions "
+          f"{plain_ms:.1f} ms; peak {peak:.3f} GB on {card}")
+    return {"counts": counts, "counts_normalize": counts_norm, "ms": ms, "plain_ms": plain_ms,
+            "lufs_cpu_diff": diff, "normalize_off": off, "peak_gb": peak, "profile": prof}
 
 
 # ------------------------------------------------------------------- main
@@ -753,13 +999,16 @@ def main() -> int:
         phase_encodec_card_vs_cpu(enc)
         enc_serve = phase_encodec_serve(enc, info["smi"])
         enc48 = phase_encodec_48k(info["smi"])
+        env = phase_envelope(gen)
+        bq = phase_biquad(gen)
+        dsp, resampled = phase_dsp_pipeline(info["smi"])
+        loud = phase_loudness(resampled, info["smi"])
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    paths = (serve, enc_serve, enc48)
-    launches = {name: sum(p["counts"][name] for p in paths)
-                for name in ("codebook_argmin", "fused_residual_unit", "lstm_scan")}
+    paths = (serve, enc_serve, enc48, dsp, loud)
+    launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
     kernels_line = {"kernels": [
         {"name": "codebook_argmin", "route": "cuda",
          "source": "neuralcodecs_tpu_torch/csrc/codebook.cu",
@@ -776,12 +1025,23 @@ def main() -> int:
          "replaces": "neuralcodecs_tpu/ops/pallas/lstm.py:103",
          "launches": launches["lstm_scan"], "max_abs_err": lstm["max_abs_err"],
          "ms": lstm["ms"], "plain_ms": lstm["plain_ms"], "shapes": lstm["rows"]},
+        {"name": "envelope_follow", "route": "cuda",
+         "source": "neuralcodecs_tpu_torch/csrc/envelope.cu",
+         "replaces": "neuralcodecs_tpu/ops/pallas/envelope.py:75",
+         "launches": launches["envelope_follow"], "max_abs_err": env["max_abs_err"],
+         "ms": env["ms"], "plain_ms": env["plain_ms"], "shapes": env["rows"]},
+        {"name": "biquad_df2t", "route": "cuda",
+         "source": "neuralcodecs_tpu_torch/csrc/biquad.cu",
+         "replaces": "neuralcodecs_tpu/ops/pallas/biquad.py:69",
+         "launches": launches["biquad_df2t"], "max_abs_err": bq["max_abs_err"],
+         "ms": bq["ms"], "plain_ms": bq["plain_ms"], "shapes": bq["rows"]},
     ]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": info, "codebook": cb, "resunit": ru, "serve": serve, "lstm": lstm,
-             "encodec_serve": enc_serve, "encodec_48k": enc48}, indent=1))
+             "encodec_serve": enc_serve, "encodec_48k": enc48, "envelope": env,
+             "biquad": bq, "dsp_pipeline": dsp, "loudness": loud}, indent=1))
     print(info["smi"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels into one shared library, loaded with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into a shared
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into a shared
 library with a plain C interface, at first use, never at import. The
 library lands in ``neuralcodecs_tpu_torch/_build/`` (ignored by git), named
 by a hash of the sources and flags, so an unchanged tree reuses it and a
@@ -29,11 +30,11 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: each returns cudaGetLastError() after its launch
 _SIGNATURES = {
     # x, codebook, out, T, N, D, device, stream
@@ -44,6 +45,10 @@ _SIGNATURES = {
     "nc_lstm_scan_f32": [_P] * 7 + [_I, _I, _I, _I, _P],
     # B, H, device, out[3] (launches nothing)
     "nc_lstm_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+    # x, env, N, T, attack, release, device, stream
+    "nc_envelope_f32": [_P, _P, _I, _I, _F, _F, _I, _P],
+    # x, y, N, T, b0, b1, b2, a1, a2, device, stream
+    "nc_biquad_f32": [_P, _P, _I, _I] + [_F] * 5 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -76,14 +81,26 @@ def library_path() -> Path:
 def _compile(out: Path) -> None:
     global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    objs = [out.with_suffix(f".{s.stem}.{tag}.o") for s in cu]
+    tmp = out.with_suffix(f".{tag}")
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o),
+                               str(s)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(cu, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [s.name for s, p in zip(cu, procs) if p.returncode != 0]
+    link = None
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    build_log = "".join(logs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed or link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise KernelBuildError(f"nvcc failed ({failed or 'link'}):\n{build_log}")
     os.replace(tmp, out)
 
 
@@ -120,3 +137,17 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def check_rows(x, name: str) -> None:
+    """Raise unless x is what the per-row recurrence kernels take: a
+    non-empty contiguous f32 [N, T] CUDA tensor."""
+    import torch
+
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x on {x.device}, want cuda")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: x is {x.dtype}, want float32")
+    if x.dim() != 2 or x.numel() == 0 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be non-empty contiguous [N, T], got "
+                         f"{tuple(x.shape)}")

@@ -221,6 +221,21 @@ def test_overlap_add_and_resample_poly_match_jax(rng):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [40, 442])
+def test_resample_poly_short_clips_match_jax(rng, n):
+    """44.1 -> 24 kHz at 40 samples (fewer than one phase's 49 taps) and
+    at 3·147 + 1 samples: the edges of the polyphase form's padding."""
+    from neuralcodecs_tpu.dsp.resample import resample_poly as jresample
+
+    from neuralcodecs_tpu_torch.dsp.resample import resample_poly
+
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    want = np.asarray(jresample(x, 44100, 24000))
+    got = resample_poly(torch.from_numpy(x), 44100, 24000).numpy()
+    assert got.shape == want.shape == (2, int(n * 80 / 147))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------ HF transformers, independent
 
 def _transformers_pair(seed: int, channels: int, **over):

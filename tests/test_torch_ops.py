@@ -29,7 +29,9 @@ from neuralcodecs_tpu.ops import conv as jconv
 from neuralcodecs_tpu_torch.core.weights import fold_weight_norm, from_jax_params
 from neuralcodecs_tpu_torch.ops import kernels
 from neuralcodecs_tpu_torch.ops.conv import conv1d, conv_transpose1d
+from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t, biquad_df2t_plain
 from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin, codebook_argmin_plain
+from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow, envelope_follow_plain
 from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan, lstm_scan_plain
 from neuralcodecs_tpu_torch.ops.kernels.resunit import fused_residual_unit, residual_unit_plain
 from neuralcodecs_tpu_torch.ops.snake import snake
@@ -199,7 +201,8 @@ def test_resunit_matches_jax_residual_unit(rng, dilation, groups):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-_NO_LAUNCHES = {"codebook_argmin": 0, "fused_residual_unit": 0, "lstm_scan": 0}
+_NO_LAUNCHES = {"codebook_argmin": 0, "fused_residual_unit": 0, "lstm_scan": 0,
+                "envelope_follow": 0, "biquad_df2t": 0}
 
 
 def _lstm_inputs(rng, t, b, h):
@@ -274,6 +277,12 @@ def test_wrappers_run_plain_on_cpu_without_counting(rng):
     largs = _lstm_port_args(*_lstm_inputs(rng, 5, 2, 16))
     for got, want in zip(lstm_scan(*largs), lstm_scan_plain(*largs)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    xs = _t(_rand(rng, 3, 40, scale=0.3))
+    torch.testing.assert_close(envelope_follow(xs, 0.2, 0.01),
+                               envelope_follow_plain(xs, 0.2, 0.01), rtol=0, atol=0)
+    b, a = (0.2, 0.3, 0.1), (1.0, -0.5, 0.25)
+    torch.testing.assert_close(biquad_df2t(xs, b, a), biquad_df2t_plain(xs, b, a),
+                               rtol=0, atol=0)
     assert kernels.launch_counts() == _NO_LAUNCHES
 
 
@@ -291,6 +300,10 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda(rng):
     with pytest.raises(ValueError):
         lstm_scan(torch.empty(4, 2, 4 * h, device="meta"), torch.empty(4 * h, h),
                   torch.empty(2, h), torch.empty(2, h))
+    with pytest.raises(ValueError):
+        envelope_follow(torch.empty(2, 100, device="meta"), 0.2, 0.01)
+    with pytest.raises(ValueError):
+        biquad_df2t(torch.empty(2, 100, device="meta"), (1.0, 0.0, 0.0), (1.0, 0.0, 0.0))
     assert kernels.launch_counts() == _NO_LAUNCHES
 
 
