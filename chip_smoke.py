@@ -14,13 +14,19 @@ chunked forward. DSP (BASELINE.json config 4, 64 clips of 10 s): holds
 the envelope and biquad kernels bit-exact against their plain loops, runs
 the resample -> compressor -> mel chain at 44.1 -> 24 kHz against the CPU
 and times it with the kernels and with the plain loops, then measures and
-normalises the BS.1770 loudness of the resampled batch. Each served path
-runs with the launch counters set to 0 just before it and read just after,
-and fails unless every kernel of the path launched as often as the path
-calls it; the kernels line reports the sum over those paths, and each
-kernel's time against its plain version at every shape checked.
-torch.profiler passes over the Encodec-24k round trip, the DSP chain and
-the loudness give device time by kernel and idle share. Exits non-zero at
+normalises the BS.1770 loudness of the resampled batch. DAC-44k: holds the
+dense residual-unit kernel against the plain chain at every unit shape of a
+10 s stream, reproduces the frozen DAC golden and its .dac bytes, checks
+full-width DAC-44k against itself on the CPU, then serves a few requests
+through it and times its round trip with the kernels and with the plain
+versions. Each served path runs with the launch counters set to 0 just
+before it and read just after, and fails unless every kernel of the path
+launched as often as the path calls it; the kernels line reports the sum
+over those paths, each kernel's time against its plain version at every
+shape checked, its bound on the card and, where one PyTorch call computes
+the same function, that call's time. torch.profiler passes over the
+Encodec-24k and DAC-44k round trips, the DSP chain and the loudness give
+device time by kernel and idle share. Exits non-zero at
 the first failed phase, and at once when no CUDA device is available. The
 last line is a JSON object naming the device.
 """
@@ -34,6 +40,7 @@ import math
 import queue
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -48,9 +55,14 @@ SEED = 20260816
 DEVICE = "cuda"
 
 
-KERNELS = ("codebook_argmin", "fused_residual_unit", "lstm_scan", "envelope_follow",
-           "biquad_df2t")
+KERNELS = ("codebook_argmin", "fused_residual_unit", "fused_residual_unit_dense", "lstm_scan",
+           "envelope_follow", "biquad_df2t")
 _NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): f32 outside the tensor cores
+# (TF32 is off on the port's f32 path) and HBM3
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+KERNEL_TAPS = 7  # the residual unit's dilated conv
 
 
 class PhaseError(RuntimeError):
@@ -61,6 +73,15 @@ def phase(name: str, ok: bool, detail: str) -> None:
     print(f"[{'ok' if ok else 'FAIL'}] {name}: {detail}", flush=True)
     if not ok:
         raise PhaseError(f"{name}: {detail}")
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for work of ``flops`` f32
+    operations that must move ``nbytes`` (each input read once, each output
+    written once): the larger of the two times, and which one sets it."""
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -100,17 +121,19 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------- phase 2
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from neuralcodecs_tpu_torch.ops.kernels import build
 
     t0 = time.time()
     build.load_library()
+    seconds = time.time() - t0
     report = [ln.strip() for ln in build.build_log.splitlines()
               if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     for ln in report:
         print(f"    ptxas: {ln}")
     phase("build", True, f"{[s.name for s in build.sources()]} -> "
-          f"{build.library_path().name} in {time.time() - t0:.1f} s")
+          f"{build.library_path().name} in {seconds:.1f} s")
+    return {"seconds": seconds, "ptxas": report}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -152,7 +175,7 @@ def phase_codebook(gen: torch.Generator) -> dict:
     cases += [(1024, 8, 862, True)]
     cases += [(1024, 128, t, False) for t in (75, 78, 150, 300, 900, 3000)]
     rows, near, worst, err = [], 0, 0.0, 0.0
-    stream_ms = stream_plain_ms = 0.0
+    stream_ms = stream_plain_ms = stream_flops = stream_bytes = 0.0
     for n, d, t, norm in cases:
         flat = torch.randn(t, d, generator=gen, device=dev)
         cb = torch.randn(n, d, generator=gen, device=dev)
@@ -168,6 +191,8 @@ def phase_codebook(gen: torch.Generator) -> dict:
         if n == 4096 and t in (118, 236, 472):
             stream_ms += ms
             stream_plain_ms += plain_ms
+            stream_flops += 2.0 * t * n * d + 2.0 * n * d  # x·e and ‖e‖²
+            stream_bytes += 4.0 * (t * d + n * d + t)
         rows.append({"N": n, "D": d, "T": t, "ms": ms, "plain_ms": plain_ms, "near_ties": k})
         print(f"    codebook N={n} D={d} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"near-tie rows {k}")
@@ -187,7 +212,8 @@ def phase_codebook(gen: torch.Generator) -> dict:
           f"{len(cases)} shapes + tie case equal (near-tie rows allowed: {near}, "
           f"max score gap {worst:.2e}); ties -> lowest index: {lowest}")
     return {"rows": rows, "near_tie_rows": near, "max_abs_err": err,
-            "ms": stream_ms, "plain_ms": stream_plain_ms}
+            "ms": stream_ms, "plain_ms": stream_plain_ms, "library_ms": None,
+            **bound(stream_flops, stream_bytes)}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -217,20 +243,21 @@ def _unit_lengths(model, samples: int) -> list[int]:
     return lengths
 
 
-def phase_resunit(model, gen: torch.Generator, samples: int) -> dict:
+def _hold_resunits(label: str, cases: list, n_stream: int, gen: torch.Generator) -> dict:
+    """Hold fused_residual_unit against the plain chain for each (unit, T, B)
+    case, within rtol 1e-4/atol 1e-5; time both. The first ``n_stream``
+    cases are one stream's units, whose times and bound are summed. A unit
+    does 2 T C (7 C/g + C) flops (its dilated conv, then the C x C
+    pointwise) and reads x and its weights once and writes out once."""
     from neuralcodecs_tpu_torch.ops.kernels.resunit import (
         fused_residual_unit, residual_unit_plain)
 
-    units = _residual_units(model)
-    lengths = _unit_lengths(model, samples)
     rows, err, bad = [], 0.0, []
-    total_ms = total_plain_ms = 0.0
-    cases = [(u, t, 1) for u, t in zip(units, lengths)]
-    cases.append((units[0], 1037, 2))  # ragged tail, two streams
+    total_ms = total_plain_ms = flops = nbytes = 0.0
     for unit, t, b in cases:
-        c = unit.block[0].alpha.shape[1]
-        x = torch.randn(b, c, t, generator=gen, device=model.device)
         args = _unit_args(unit)
+        c, w_dil = args[0].shape[1], args[1]
+        x = torch.randn(b, c, t, generator=gen, device=w_dil.device)
         got = fused_residual_unit(x, *args, dilation=unit.dilation)
         want = residual_unit_plain(x, *args, dilation=unit.dilation)
         torch.cuda.synchronize()
@@ -238,22 +265,33 @@ def phase_resunit(model, gen: torch.Generator, samples: int) -> dict:
         close = torch.allclose(got, want, rtol=1e-4, atol=1e-5)
         err = max(err, e)
         if not close:
-            bad.append((c, unit.dilation, t, e))
-        iters = 3 if c * t > 10_000_000 else 10
+            bad.append((c, unit.dilation, t, b, e))
+        iters = 3 if b * c * t > 10_000_000 else 10
         ms = time_ms(lambda: fused_residual_unit(x, *args, dilation=unit.dilation), iters)
         plain_ms = time_ms(lambda: residual_unit_plain(x, *args, dilation=unit.dilation), iters)
-        if b == 1:
+        if len(rows) < n_stream:
             total_ms += ms
             total_plain_ms += plain_ms
+            flops += 2.0 * t * c * (KERNEL_TAPS * w_dil.shape[1] + c)
+            nbytes += 4.0 * (2 * c * t + w_dil.numel() + c * c + 4 * c)
         rows.append({"C": c, "dilation": unit.dilation, "T": t, "B": b, "ms": ms,
                      "plain_ms": plain_ms, "max_abs_err": e})
-        print(f"    resunit C={c} d={unit.dilation} T={t} B={b}: kernel {ms:.3f} ms, "
+        print(f"    {label} C={c} d={unit.dilation} T={t} B={b}: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, max|err| {e:.2e}{'' if close else '  MISMATCH'}")
-    phase("resunit kernel vs plain", not bad,
-          f"{len(cases)} shapes within rtol 1e-4/atol 1e-5 (max|err| {err:.2e}); "
-          f"one 10 s stream's 24 units: kernel {total_ms:.2f} ms, plain {total_plain_ms:.2f} ms"
-          + (f"; mismatches {bad}" if bad else ""))
-    return {"rows": rows, "max_abs_err": err, "ms": total_ms, "plain_ms": total_plain_ms}
+    return {"rows": rows, "max_abs_err": err, "ms": total_ms, "plain_ms": total_plain_ms,
+            "library_ms": None, "mismatches": bad, **bound(flops, nbytes)}
+
+
+def phase_resunit(model, gen: torch.Generator, samples: int) -> dict:
+    units = _residual_units(model)
+    cases = [(u, t, 1) for u, t in zip(units, _unit_lengths(model, samples))]
+    cases.append((units[0], 1037, 2))  # ragged tail, two streams
+    res = _hold_resunits("resunit", cases, len(units), gen)
+    phase("resunit kernel vs plain", not res["mismatches"],
+          f"{len(cases)} shapes within rtol 1e-4/atol 1e-5 (max|err| {res['max_abs_err']:.2e}); "
+          f"one 10 s stream's 24 units: kernel {res['ms']:.2f} ms, plain {res['plain_ms']:.2f} ms"
+          + (f"; mismatches {res['mismatches']}" if res["mismatches"] else ""))
+    return res
 
 
 # ---------------------------------------------------------------- phase 5
@@ -325,7 +363,7 @@ def phase_card_vs_cpu(model) -> None:
 
     rng = np.random.default_rng(SEED)
     audio = (0.3 * rng.standard_normal(24000)).astype(np.float32)
-    cpu = SNAC(model.config).eval()
+    cpu = SNAC(model.config, device="cpu").eval()
     cpu.load_state_dict(model.state_dict())
     with torch.no_grad():
         a_gpu, _ = model._prepare(audio)
@@ -506,12 +544,22 @@ def phase_lstm(model, gen: torch.Generator) -> dict:
         print(f"    lstm {name}: T={t} B={b} H={h} (U={u}, {blocks} blocks, BS={bs}): "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"max|err| {e:.2e}{'' if close else '  MISMATCH'}")
+    # the main path's shape (24 kHz 4 x 10 s): the bound of the recurrence
+    # (h @ W_hh and the gate arithmetic) and cuDNN's LSTM, which also runs
+    # the input projection the kernel is handed precomputed
+    t, b, h = cases[0][1:]
+    flops = 2.0 * t * b * 4 * h * h + 10.0 * t * b * h
+    nbytes = 4.0 * (t * b * 4 * h + 4 * h * h + 4 * b * h + t * b * h)
+    lib = torch.nn.LSTM(h, h).to(dev)
+    seq = torch.randn(t, b, h, generator=gen, device=dev)
+    library_ms = time_ms(lambda: lib(seq), 10)
     phase("lstm kernel vs plain", not bad and chunked and ragged,
           f"{len(cases)} shapes (ys, h_f, c_f) within rtol 1e-5/atol 1e-6 "
           f"(max|err| {err:.2e}); a case with B > BS: {chunked}, with a ragged last "
-          f"block: {ragged}" + (f"; mismatches {bad}" if bad else ""))
+          f"block: {ragged}; torch.nn.LSTM (cuDNN, with its input projection) at "
+          f"T={t} B={b} H={h}: {library_ms:.3f} ms" + (f"; mismatches {bad}" if bad else ""))
     return {"rows": rows, "max_abs_err": err, "ms": rows[0]["ms"],
-            "plain_ms": rows[0]["plain_ms"]}
+            "plain_ms": rows[0]["plain_ms"], "library_ms": library_ms, **bound(flops, nbytes)}
 
 
 def _golden_encodec_config():
@@ -572,7 +620,7 @@ def phase_encodec_card_vs_cpu(model) -> None:
 
     rng = np.random.default_rng(SEED + 2)
     audio = (0.3 * rng.standard_normal(model.config.sample_rate)).astype(np.float32)
-    cpu = Encodec(model.config).eval()
+    cpu = Encodec(model.config, device="cpu").eval()
     cpu.load_state_dict(model.state_dict())
     codes_gpu = model.encode(audio)[0].codes.cpu()
     codes_cpu = cpu.encode(audio)[0].codes
@@ -587,19 +635,23 @@ def phase_encodec_card_vs_cpu(model) -> None:
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """Swap the plain versions in where Encodec calls the LSTM and codebook
-    kernels, for a kernel-vs-plain timing of the same round trip."""
+    """Swap the plain versions in where the codecs call the LSTM, codebook
+    and residual-unit kernels, for a kernel-vs-plain timing of the same
+    round trip."""
+    from neuralcodecs_tpu_torch.models import layers
     from neuralcodecs_tpu_torch.models.encodec import seanet
     from neuralcodecs_tpu_torch.ops import vq
     from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin_plain
     from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan_plain
+    from neuralcodecs_tpu_torch.ops.kernels.resunit import residual_unit_plain
 
-    saved = seanet.lstm_scan, vq.codebook_argmin
+    saved = seanet.lstm_scan, vq.codebook_argmin, layers.fused_residual_unit
     seanet.lstm_scan, vq.codebook_argmin = lstm_scan_plain, codebook_argmin_plain
+    layers.fused_residual_unit = residual_unit_plain
     try:
         yield
     finally:
-        seanet.lstm_scan, vq.codebook_argmin = saved
+        seanet.lstm_scan, vq.codebook_argmin, layers.fused_residual_unit = saved
 
 
 def _encodec_rows(model):
@@ -781,10 +833,12 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
-def _recurrence_phase(name: str, kernel, plain, cases: list) -> dict:
+def _recurrence_phase(name: str, kernel, plain, cases: list, ops_per_sample: int) -> dict:
     """Kernel against its plain loop, bit-exact (torch.equal), for each
     (label, x, args) case; the plain loop runs once a case (seconds at the
-    config-4 T) and that run is its time."""
+    config-4 T) and that run is its time. The bound is the first case's
+    (the config-4 shape): ``ops_per_sample`` f32 operations a sample, one
+    read and one write."""
     rows, bad, err = [], [], 0.0
     for label, x, args in cases:
         got = kernel(x, *args)
@@ -801,7 +855,9 @@ def _recurrence_phase(name: str, kernel, plain, cases: list) -> dict:
               f"{plain_ms:.1f} ms, " + ("bit-exact" if exact else f"MISMATCH max|err| {e:.2e}"))
     phase(f"{name} kernel vs plain", not bad,
           f"{len(cases)} cases bit-exact (torch.equal)" + (f"; mismatches {bad}" if bad else ""))
-    return {"rows": rows, "max_abs_err": err, "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"]}
+    n = cases[0][1].numel()
+    return {"rows": rows, "max_abs_err": err, "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            "library_ms": None, **bound(float(ops_per_sample) * n, 8.0 * n)}
 
 
 def _compressor_gains(sample_rate: int) -> tuple[float, float]:
@@ -816,7 +872,8 @@ def phase_envelope(gen: torch.Generator) -> dict:
     gains = _compressor_gains(DSP_DST)
     cases = [("compressor 24k", 0.25 * torch.randn(n, t, generator=gen, device=DEVICE), gains)
              for n, t in RECURRENCE_SHAPES]
-    return _recurrence_phase("envelope", envelope_follow, envelope_follow_plain, cases)
+    # a step: |x| compare-select, subtract, multiply, add
+    return _recurrence_phase("envelope", envelope_follow, envelope_follow_plain, cases, 4)
 
 
 def _biquads() -> list[tuple[str, tuple, tuple]]:
@@ -839,7 +896,8 @@ def phase_biquad(gen: torch.Generator) -> dict:
     for n, t in RECURRENCE_SHAPES:
         x = 0.25 * torch.randn(n, t, generator=gen, device=DEVICE)
         cases += [(label, x, (b, a)) for label, b, a in _biquads()]
-    return _recurrence_phase("biquad", biquad_df2t, biquad_df2t_plain, cases)
+    # a step: five multiplies, four adds
+    return _recurrence_phase("biquad", biquad_df2t, biquad_df2t_plain, cases, 9)
 
 
 @contextlib.contextmanager
@@ -969,7 +1027,251 @@ def phase_loudness(resampled: torch.Tensor, card: str) -> dict:
             "lufs_cpu_diff": diff, "normalize_off": off, "peak_gb": peak, "profile": prof}
 
 
+# ----------------------------------------------------------- DAC phases
+
+
+def phase_resunit_dense(model, gen: torch.Generator) -> dict:
+    """The dense kernel against the plain chain at every dense unit shape of
+    one DAC-44k 10 s stream (B = 1, the 24 units of its forward), and at the
+    edge cases: C = 8 and C = 96 at T = 1037, B = 2 (ragged channel tile and
+    time tail), and C = 768, d = 9, T = 6896, B = 4 (the server's batch)."""
+    from neuralcodecs_tpu_torch.models.layers import ResidualUnit
+
+    units = _residual_units(model)
+    lengths = _unit_lengths(model, _dac_padded(10 * model.config.sample_rate, model))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        narrow = ResidualUnit(8, dilation=9).to(DEVICE)
+    by_shape = {(_unit_args(u)[0].shape[1], u.dilation): u for u in units}
+    cases = [(u, t, 1) for u, t in zip(units, lengths)]
+    cases += [(narrow, 1037, 2), (by_shape[(96, 9)], 1037, 2), (by_shape[(768, 9)], 6896, 4)]
+    res = _hold_resunits("resunit dense", cases, len(units), gen)
+    w = _unit_args(by_shape[(768, 9)])[1]
+    res["relayout_ms_c768"] = time_ms(lambda: w.permute(2, 1, 0).contiguous(), 20)
+    phase("resunit dense kernel vs plain", not res["mismatches"],
+          f"{len(cases)} shapes within rtol 1e-4/atol 1e-5 (max|err| {res['max_abs_err']:.2e}); "
+          f"one 10 s stream's 24 units: kernel {res['ms']:.2f} ms, plain {res['plain_ms']:.2f} "
+          f"ms, bound {res['bound_ms']:.2f} ms ({res['bound_by']}); the wrapper's Wd re-layout "
+          f"at C = 768: {res['relayout_ms_c768']:.4f} ms a call"
+          + (f"; mismatches {res['mismatches']}" if res["mismatches"] else ""))
+    return res
+
+
+def _dac_padded(samples: int, model) -> int:
+    hop = model.config.hop_length
+    return -(-samples // hop) * hop
+
+
+def _dac_golden_model():
+    """The DAC of tests/goldens/dac_golden.npz (make_goldens.dac_golden_config:
+    reduced widths, the real 44 kHz strides, 9 codebooks) on the card."""
+    from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
+
+    g = np.load(ROOT / "tests" / "goldens" / "dac_golden.npz")
+    cfg = DACConfig(sample_rate=44100, encoder_dim=8, encoder_rates=[2, 4, 8, 8],
+                    decoder_dim=128, decoder_rates=[8, 8, 4, 2], n_codebooks=9,
+                    codebook_size=1024, codebook_dim=8)
+    model = DAC(cfg, device=DEVICE)
+    model.load_state_dict({k[3:]: torch.from_numpy(g[k]) for k in g.files
+                           if k.startswith("sd/")}, strict=True)
+    return model, g
+
+
+def _dac_top2_gaps(model, latents: torch.Tensor) -> list[torch.Tensor]:
+    """Per RVQ stage, the gap between the two best plain normalised scores
+    of each frame, from the stages' z_e ([B, T, Nq·D] latents)."""
+    from neuralcodecs_tpu_torch.ops.vq import l2_normalize
+
+    gaps = []
+    d = model.config.codebook_dim
+    for i, vq in enumerate(model.quantizer.quantizers[: latents.shape[-1] // d]):
+        cb = vq.codebook.weight
+        z_e = latents[..., i * d: (i + 1) * d].reshape(-1, d)
+        top2 = torch.topk(_plain_scores(l2_normalize(z_e), l2_normalize(cb)), 2, dim=-1,
+                          largest=False).values
+        gaps.append(top2[:, 1] - top2[:, 0])
+    return gaps
+
+
+def phase_dac_golden():
+    model, g = _dac_golden_model()
+    out = model.forward(g["audio"])
+    codes = out["codes"].cpu().numpy()
+    ref_codes = g["codes"].astype(np.int32)
+    bad = np.argwhere(codes != ref_codes)
+    if len(bad):
+        gaps = _dac_top2_gaps(model, out["latents"])
+        for b, stage, f in bad:
+            print(f"    dac golden stage {stage} frame {f}: code {codes[b, stage, f]} vs "
+                  f"{ref_codes[b, stage, f]}, top-2 score gap {float(gaps[stage][f]):.3e}")
+    ref_audio = g["decoded"][: g["audio"].shape[0]]
+    got_audio = out["audio"][0].cpu().numpy()
+    close = np.allclose(got_audio, ref_audio, rtol=1e-3, atol=1e-4)
+    snr = _snr_db(ref_audio, got_audio)
+    phase("dac golden", not len(bad) and close and snr > 55.0,
+          f"9 stages x {codes.shape[-1]} frames bit-exact={not len(bad)}, audio within rtol "
+          f"1e-3/atol 1e-4={close}, SNR {snr:.1f} dB (> 55), max|err| "
+          f"{np.abs(got_audio - ref_audio).max():.2e}")
+    return model, g
+
+
+def phase_dac_card_vs_cpu(model) -> dict:
+    """Full-width DAC-44k: the port on the card (kernels) against the port on
+    the CPU (plain versions), on 1 s of audio. A frame may differ where it
+    first differs at a stage whose two best normalised scores lie within the
+    near-tie tolerance of _compare_codes (a flip there changes the frame's
+    residual for every later stage); every other code must be equal."""
+    from neuralcodecs_tpu_torch.models.dac import DAC
+    from neuralcodecs_tpu_torch.ops.vq import l2_normalize
+
+    rng = np.random.default_rng(SEED + 7)
+    audio = (0.3 * rng.standard_normal(model.config.sample_rate)).astype(np.float32)
+    cpu = DAC(model.config, device="cpu").eval()
+    cpu.load_state_dict(model.state_dict())
+    out_gpu = model.forward(audio)
+    out_cpu = cpu.forward(audio)
+    got, want = out_gpu["codes"].cpu(), out_cpu["codes"]  # [1, 9, F]
+    differs = got[0] != want[0]                          # [9, F]
+    frames = torch.nonzero(differs.any(dim=0)).flatten()
+    near, gap = 0, 0.0
+    for stage in range(got.shape[1]):
+        first = [int(f) for f in frames if int(torch.nonzero(differs[:, f])[0]) == stage]
+        if not first:
+            continue
+        vq = model.quantizer.quantizers[stage]
+        d = vq.codebook.weight.shape[1]
+        z_e = out_gpu["latents"][0, first, stage * d: (stage + 1) * d]
+        k, g = _compare_codes(l2_normalize(z_e), l2_normalize(vq.codebook.weight),
+                              got[0, stage, first].to(DEVICE), want[0, stage, first].to(DEVICE))
+        near, gap = near + k, max(gap, g)
+    same = [bool((~differs[s]).all()) for s in range(differs.shape[0])]
+    ref, out = out_cpu["audio"].numpy().ravel(), out_gpu["audio"].cpu().numpy().ravel()
+    snr = _snr_db(ref, out)
+    phase("dac full-width card vs cpu", snr > 55.0,
+          f"codes equal per stage {same}; frames that differ {len(frames)} of "
+          f"{got.shape[-1]}, each first at a near-tie (rows {near}, max score gap {gap:.2e}); "
+          f"SNR {snr:.1f} dB (> 55), max|err| {np.abs(ref - out).max():.2e}")
+    return {"near_tie_frames": len(frames), "snr_db": snr}
+
+
+def _dac_rows(model):
+    """DAC's forward on a stacked batch, as cli/serve.py calls it, split into
+    per-request (audio, codes)."""
+    def forward(stacked: np.ndarray) -> list:
+        out = model.forward(stacked)
+        return [(out["audio"][i], out["codes"][i]) for i in range(stacked.shape[0])]
+    return forward
+
+
+def phase_dac_serve(model, card: str) -> dict:
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    cfg = model.config
+    sr = cfg.sample_rate
+    rng = np.random.default_rng(SEED + 8)
+    long_reqs = [(0.3 * rng.standard_normal(10 * sr)).astype(np.float32) for _ in range(4)]
+    short_reqs = [(0.3 * rng.standard_normal(3 * sr)).astype(np.float32) for _ in range(3)]
+    foreign = (0.3 * rng.standard_normal(48000 * 2)).astype(np.float32)
+    n_units, n_stages = len(_residual_units(model)), cfg.n_codebooks
+
+    def check(results, requests):
+        for (out, codes), x in zip(results, requests):
+            frames = _dac_padded(x.shape[-1], model) // cfg.hop_length
+            if (tuple(out.shape) != x.shape or not bool(torch.isfinite(out).all())
+                    or tuple(codes.shape) != (n_stages, frames) or int(codes.min()) < 0
+                    or int(codes.max()) >= cfg.codebook_size):
+                raise PhaseError(f"bad result: audio {tuple(out.shape)} (want {x.shape}), "
+                                 f"codes {tuple(codes.shape)}")
+
+    forward = _dac_rows(model)
+    kernels.reset_launch_counts()
+    results, forwards = _serve(forward, long_reqs)  # cold
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    results, f = _serve(forward, long_reqs)  # warm
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    forwards += f
+    served_ms = start.elapsed_time(end)
+    check(results, long_reqs)
+    short, f = _serve(forward, short_reqs)  # 3 requests padded to batch 4
+    forwards += f
+    check(short, short_reqs)
+    resampled = model.process_audio(foreign, 48000)
+    forwards += 1
+    n_out = int(foreign.shape[-1] * sr / 48000)
+    if resampled.shape != (n_out,) or not np.isfinite(resampled).all():
+        raise PhaseError(f"process_audio: shape {resampled.shape}, want ({n_out},)")
+    codes = torch.stack([c for _, c in results])
+    decoded = model.from_codes(codes)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n_dec_units = len(_residual_units(model.decoder))
+    want = {**_NO_LAUNCHES, "codebook_argmin": n_stages * forwards,
+            "fused_residual_unit_dense": n_units * forwards + n_dec_units}
+    if tuple(decoded.shape) != (4, codes.shape[-1] * cfg.hop_length) or not bool(
+            torch.isfinite(decoded).all()):
+        raise PhaseError(f"from_codes: shape {tuple(decoded.shape)}")
+
+    # the warm batch-4 x 10 s round trip, kernels against plain versions, in
+    # turns plain, kernel, kernel, plain
+    batch = np.stack(long_reqs)
+    times = {"kernel": [], "plain": []}
+    peak = {}
+    for mode in ("plain", "kernel", "kernel", "plain"):
+        ctx = _plain_kernels() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            ms, gb = _timed_roundtrip(model, batch)
+        times[mode].append(ms)
+        peak[mode] = gb
+    kernel_ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    prof = _device_profile(lambda: model.forward(batch), kernel_ms, "resunit_dense_kernel",
+                           n_units)
+    _print_profile("dac kernel", prof, kernel_ms)
+    xrt = 40.0 / (kernel_ms / 1e3)
+    phase("dac serve", counts == want,
+          f"{forwards} forwards (2x 4x10 s batch, 3x3 s padded to 4, process_audio 48k) and "
+          f"from_codes of the warm batch; launches {counts} == {want}; served warm batch "
+          f"{served_ms:.1f} ms (CUDA events; host {host_ms:.1f} ms); warm batch-4 10 s round "
+          f"trip kernels {times['kernel']} ms, plain {times['plain']} ms; peak "
+          f"{peak['kernel']:.2f} vs {peak['plain']:.2f} GB; {xrt:.1f}x realtime on {card}")
+    return {"counts": counts, "forwards": forwards, "served_ms": served_ms, "host_ms": host_ms,
+            "times_ms": times, "peak_gb": peak, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "xrt": xrt, "profile": prof}
+
+
+def phase_dac_file(model, g, tmp: Path) -> None:
+    """encode_to_file on the card writes the bytes the port on the CPU
+    writes for the golden's codes; decode_from_file equals from_codes."""
+    from neuralcodecs_tpu_torch.models.dac.dacfile import dac_file_bytes
+
+    path = tmp / "golden.dac"
+    model.encode_to_file(g["audio"], path)
+    want = dac_file_bytes([g["codes"].astype(np.int32)], model.config)
+    same = path.read_bytes() == want
+    from_file = model.decode_from_file(path)
+    direct = model.from_codes(g["codes"].astype(np.int32))
+    close = torch.allclose(from_file, direct, rtol=1e-5, atol=1e-6)
+    phase("dac file", same and close,
+          f"encode_to_file == the CPU's dac_file_bytes of the golden codes ({len(want)} B): "
+          f"{same}; decode_from_file vs from_codes within rtol 1e-5/atol 1e-6: {close} "
+          f"(max|err| {float((from_file - direct).abs().max()):.2e})")
+
+
 # ------------------------------------------------------------------- main
+
+
+def _entry(name: str, source: str, replaces: str, launches: dict, res: dict) -> dict:
+    """One kernel's record in the kernels line."""
+    return {"name": name, "route": "cuda",
+            "source": f"neuralcodecs_tpu_torch/csrc/{source}",
+            "replaces": f"neuralcodecs_tpu/ops/pallas/{replaces}",
+            "launches": launches[name], "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"], "shapes": res["rows"]}
 
 
 def main() -> int:
@@ -980,12 +1282,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     torch.set_grad_enabled(False)
+    t_start = time.time()
     try:
+        from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
         from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig
         from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig
 
         info = phase_device()
-        phase_build()
+        built = phase_build()
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         cb = phase_codebook(gen)
         model = SNAC(SNACConfig.snac_24khz(), device=DEVICE, seed=SEED).eval()
@@ -1003,45 +1307,35 @@ def main() -> int:
         bq = phase_biquad(gen)
         dsp, resampled = phase_dsp_pipeline(info["smi"])
         loud = phase_loudness(resampled, info["smi"])
+        dac = DAC(DACConfig.dac_44khz(), device=DEVICE, seed=SEED).eval()
+        ru_dense = phase_resunit_dense(dac, gen)
+        golden_dac, golden = phase_dac_golden()
+        dac_cmp = phase_dac_card_vs_cpu(dac)
+        dac_serve = phase_dac_serve(dac, info["smi"])
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_dac_file(golden_dac, golden, Path(tmp))
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    paths = (serve, enc_serve, enc48, dsp, loud)
+    paths = (serve, enc_serve, enc48, dsp, loud, dac_serve)
     launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
     kernels_line = {"kernels": [
-        {"name": "codebook_argmin", "route": "cuda",
-         "source": "neuralcodecs_tpu_torch/csrc/codebook.cu",
-         "replaces": "neuralcodecs_tpu/ops/pallas/codebook.py:46",
-         "launches": launches["codebook_argmin"], "max_abs_err": cb["max_abs_err"],
-         "ms": cb["ms"], "plain_ms": cb["plain_ms"], "shapes": cb["rows"]},
-        {"name": "fused_residual_unit", "route": "cuda",
-         "source": "neuralcodecs_tpu_torch/csrc/resunit.cu",
-         "replaces": "neuralcodecs_tpu/ops/pallas/resunit.py:154",
-         "launches": launches["fused_residual_unit"], "max_abs_err": ru["max_abs_err"],
-         "ms": ru["ms"], "plain_ms": ru["plain_ms"], "shapes": ru["rows"]},
-        {"name": "lstm_scan", "route": "cuda",
-         "source": "neuralcodecs_tpu_torch/csrc/lstm.cu",
-         "replaces": "neuralcodecs_tpu/ops/pallas/lstm.py:103",
-         "launches": launches["lstm_scan"], "max_abs_err": lstm["max_abs_err"],
-         "ms": lstm["ms"], "plain_ms": lstm["plain_ms"], "shapes": lstm["rows"]},
-        {"name": "envelope_follow", "route": "cuda",
-         "source": "neuralcodecs_tpu_torch/csrc/envelope.cu",
-         "replaces": "neuralcodecs_tpu/ops/pallas/envelope.py:75",
-         "launches": launches["envelope_follow"], "max_abs_err": env["max_abs_err"],
-         "ms": env["ms"], "plain_ms": env["plain_ms"], "shapes": env["rows"]},
-        {"name": "biquad_df2t", "route": "cuda",
-         "source": "neuralcodecs_tpu_torch/csrc/biquad.cu",
-         "replaces": "neuralcodecs_tpu/ops/pallas/biquad.py:69",
-         "launches": launches["biquad_df2t"], "max_abs_err": bq["max_abs_err"],
-         "ms": bq["ms"], "plain_ms": bq["plain_ms"], "shapes": bq["rows"]},
+        _entry("codebook_argmin", "codebook.cu", "codebook.py:46", launches, cb),
+        _entry("fused_residual_unit", "resunit.cu", "resunit.py:154", launches, ru),
+        _entry("fused_residual_unit_dense", "resunit.cu", "resunit.py:154 (depthwise=False)",
+               launches, ru_dense),
+        _entry("lstm_scan", "lstm.cu", "lstm.py:103", launches, lstm),
+        _entry("envelope_follow", "envelope.cu", "envelope.py:75", launches, env),
+        _entry("biquad_df2t", "biquad.cu", "biquad.py:69", launches, bq),
     ]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"device": info, "codebook": cb, "resunit": ru, "serve": serve, "lstm": lstm,
-             "encodec_serve": enc_serve, "encodec_48k": enc48, "envelope": env,
-             "biquad": bq, "dsp_pipeline": dsp, "loudness": loud}, indent=1))
+            {"device": info, "seconds": time.time() - t_start, "build": built, "codebook": cb,
+             "resunit": ru, "serve": serve, "lstm": lstm, "encodec_serve": enc_serve, "encodec_48k": enc48, "envelope": env,
+             "biquad": bq, "dsp_pipeline": dsp, "loudness": loud, "resunit_dense": ru_dense,
+             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve}, indent=1))
     print(info["smi"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

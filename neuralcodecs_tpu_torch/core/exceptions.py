@@ -15,6 +15,10 @@ class LoadError(NeuralCodecError):
         super().__init__(message if source is None else f"{message} (source={source})")
 
 
+class ConfigurationError(NeuralCodecError):
+    """Raised when a model config is missing, malformed, or inconsistent."""
+
+
 class CodecError(NeuralCodecError):
     """Raised when encode/decode fails at runtime (bad shapes, streams...)."""
 

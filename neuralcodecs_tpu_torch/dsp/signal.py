@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.dsp.audio_utils import pcm16_to_float, pcm24_to_float, pcm32_to_float
 from neuralcodecs_tpu_torch.dsp.loudness import integrated_loudness, normalize_loudness
 from neuralcodecs_tpu_torch.dsp.mel import mel_spectrogram, mfcc
@@ -36,10 +37,12 @@ class AudioInfo:
 class AudioSignal:
     """[B, C, T] audio and its sample rate. ``audio`` may be [T], [C, T] or
     [B, C, T], a tensor or an array; ``device`` moves it (None keeps a
-    tensor where it is, an array on the CPU)."""
+    tensor where it is and puts an array on "cuda")."""
 
     def __init__(self, audio, sample_rate: int, stft_params: STFTParams | None = None,
                  device: torch.device | str | None = None):
+        if device is None and not isinstance(audio, torch.Tensor):
+            device = resolve_device()
         a = torch.as_tensor(audio, dtype=torch.float32, device=device)
         if a.dim() == 1:
             a = a[None, None, :]
@@ -57,7 +60,7 @@ class AudioSignal:
     @classmethod
     def load(cls, path: str | Path, offset: float = 0.0, duration: float | None = None,
              device: torch.device | str | None = None) -> "AudioSignal":
-        """Read a 16-, 24- or 32-bit PCM WAV file."""
+        """Read a 16-, 24- or 32-bit PCM WAV file onto ``device`` ("cuda" if None)."""
         with wave.open(str(path), "rb") as f:
             sr, channels, width = f.getframerate(), f.getnchannels(), f.getsampwidth()
             start = int(offset * sr)

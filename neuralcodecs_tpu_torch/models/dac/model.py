@@ -1,0 +1,297 @@
+"""DAC — Descript Audio Codec, PyTorch port.
+
+Counterpart of neuralcodecs_tpu.models.dac.model. Topology:
+
+  pad to the hop → Encoder (WNConv1d k7 → N×[3 dilated ResUnits + Snake +
+        strided conv] → Snake → WNConv1d k3 to the latent)
+      → RVQ (per stage: in_proj → normalized-L2 argmin → raw-codebook
+        embedding → straight-through → out_proj; commitment and codebook
+        losses)
+      → Decoder (WNConv1d k7 → N×[Snake → ConvTranspose → 3 ResUnits] →
+        Snake → WNConv1d k7 → tanh)
+      → trim to at most the input length.
+
+Module and parameter names follow the descript checkpoint (``encoder.block``,
+``quantizer.quantizers``, ``decoder.model``), so a weight-norm-folded
+checkpoint loads with ``load_state_dict(strict=True)``. Every residual unit
+is dense (groups = 1): on a CUDA device the 24 units of a DAC-44k forward run
+the dense residual-unit kernel and every RVQ stage the codebook kernel. The
+round trip runs unchunked; training (``forward_train``, quantizer dropout)
+and the bf16 modes are not ported yet.
+
+Public layouts are the JAX package's: audio [B, T], codes [B, Nq, T],
+``z`` and ``latents`` [B, T, C]. Inside, activations are [B, C, T].
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from neuralcodecs_tpu_torch.core.device import resolve_device
+from neuralcodecs_tpu_torch.dsp.resample import resample_poly
+from neuralcodecs_tpu_torch.models.dac.config import DACConfig
+from neuralcodecs_tpu_torch.models.layers import (
+    ResidualUnit,
+    Snake1d,
+    Tanh,
+    WNConv1d,
+    WNConvTranspose1d,
+)
+from neuralcodecs_tpu_torch.ops.vq import codebook_lookup, cosine_argmin_codes
+
+
+class EncoderBlock(nn.Module):
+    """3×ResidualUnit(dil 1/3/9) at dim/2 + Snake + strided conv to dim."""
+
+    def __init__(self, dim: int, stride: int):
+        super().__init__()
+        half = dim // 2
+        self.block = nn.Sequential(
+            *(ResidualUnit(half, dilation=d) for d in (1, 3, 9)),
+            Snake1d(half),
+            WNConv1d(half, dim, 2 * stride, stride=stride, padding=-(-stride // 2)),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class DecoderBlock(nn.Module):
+    """Snake → ConvTranspose(k = 2s) → 3×ResidualUnit(dil 1/3/9)."""
+
+    def __init__(self, in_dim: int, out_dim: int, stride: int):
+        super().__init__()
+        self.block = nn.Sequential(
+            Snake1d(in_dim),
+            WNConvTranspose1d(in_dim, out_dim, 2 * stride, stride=stride,
+                              padding=-(-stride // 2)),
+            *(ResidualUnit(out_dim, dilation=d) for d in (1, 3, 9)),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: DACConfig):
+        super().__init__()
+        layers: list[nn.Module] = [WNConv1d(1, cfg.encoder_dim, 7, padding=3)]
+        dim = cfg.encoder_dim
+        for stride in cfg.encoder_rates:
+            dim *= 2
+            layers.append(EncoderBlock(dim, stride))
+        layers += [Snake1d(dim), WNConv1d(dim, cfg.resolved_latent_dim, 3, padding=1)]
+        self.block = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: DACConfig):
+        super().__init__()
+        layers: list[nn.Module] = [WNConv1d(cfg.resolved_latent_dim, cfg.decoder_dim, 7,
+                                            padding=3)]
+        out_dim = cfg.decoder_dim
+        for i, rate in enumerate(cfg.decoder_rates):
+            out_dim = cfg.decoder_dim // (1 << (i + 1))
+            layers.append(DecoderBlock(cfg.decoder_dim // (1 << i), out_dim, rate))
+        layers += [Snake1d(out_dim), WNConv1d(out_dim, 1, 7, padding=3), Tanh()]
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x)
+
+
+class VectorQuantizer(nn.Module):
+    """One RVQ stage with its commitment and codebook losses."""
+
+    def __init__(self, input_dim: int, codebook_size: int, codebook_dim: int):
+        super().__init__()
+        self.in_proj = WNConv1d(input_dim, codebook_dim, 1)
+        self.out_proj = WNConv1d(codebook_dim, input_dim, 1)
+        self.codebook = nn.Embedding(codebook_size, codebook_dim)
+
+    def quantize(self, z_e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """z_e [B, D, T] -> (codes [B, T], raw-codebook embedding [B, D, T])."""
+        codebook = self.codebook.weight
+        codes = cosine_argmin_codes(z_e.transpose(1, 2), codebook)
+        return codes, codebook_lookup(codes, codebook).transpose(1, 2)
+
+    def forward(self, z: torch.Tensor):
+        """z [B, C, T] -> (z_q [B, C, T], commit [B], codebook_loss [B],
+        codes [B, T], z_e [B, D, T])."""
+        z_e = self.in_proj(z)
+        codes, z_q = self.quantize(z_e)
+        commit = torch.mean((z_e - z_q) ** 2, dim=(1, 2))
+        codebook_loss = torch.mean((z_q - z_e) ** 2, dim=(1, 2))
+        z_q = z_e + (z_q - z_e)  # straight-through, rounded as the JAX forward rounds it
+        return self.out_proj(z_q), commit, codebook_loss, codes, z_e
+
+    def decode_code(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B, T] -> z_q contribution [B, C, T]."""
+        return self.out_proj(codebook_lookup(codes, self.codebook.weight).transpose(1, 2))
+
+
+class ResidualVectorQuantizer(nn.Module):
+    def __init__(self, cfg: DACConfig):
+        super().__init__()
+        self.quantizers = nn.ModuleList(
+            VectorQuantizer(cfg.resolved_latent_dim, cfg.codebook_size, cfg.codebook_dim)
+            for _ in range(cfg.n_codebooks))
+
+    def forward(self, z: torch.Tensor, n_quantizers: int | None = None):
+        """z [B, C, T] -> (z_q [B, C, T], codes [B, Nq, T], latents
+        [B, Nq·D, T], commitment loss, codebook loss); the losses are the sums
+        over stages of each stage's batch mean."""
+        residual, z_q = z, torch.zeros_like(z)
+        codes, latents = [], []
+        commit = torch.zeros((), device=z.device)
+        codebook_loss = torch.zeros((), device=z.device)
+        limit = len(self.quantizers) if n_quantizers is None else n_quantizers
+        for vq in self.quantizers[:limit]:
+            z_q_i, commit_i, cb_i, codes_i, z_e_i = vq(residual)
+            z_q = z_q + z_q_i
+            commit = commit + torch.mean(commit_i)
+            codebook_loss = codebook_loss + torch.mean(cb_i)
+            residual = residual - z_q_i
+            codes.append(codes_i)
+            latents.append(z_e_i)
+        return (z_q, torch.stack(codes, dim=1), torch.cat(latents, dim=1), commit,
+                codebook_loss)
+
+    def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes [B, Nq, T] -> z_q [B, C, T]."""
+        z_q = self.quantizers[0].decode_code(codes[:, 0])
+        for i in range(1, codes.shape[1]):
+            z_q = z_q + self.quantizers[i].decode_code(codes[:, i])
+        return z_q
+
+    def from_latents(self, latents: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Latents [B, Σ D_i, T] (the stages' z_e, concatenated) -> (z_q, codes):
+        each stage's span is re-quantized and its projection summed."""
+        dims = np.cumsum([0] + [vq.codebook.weight.shape[1] for vq in self.quantizers]).tolist()
+        n_stages = int(np.searchsorted(dims, latents.shape[1], side="right")) - 1
+        z_q, codes = None, []
+        for i, vq in enumerate(self.quantizers[:n_stages]):
+            stage_codes, z_p = vq.quantize(latents[:, dims[i]: dims[i + 1]])
+            contrib = vq.out_proj(z_p)
+            z_q = contrib if z_q is None else z_q + contrib
+            codes.append(stage_codes)
+        return z_q, torch.stack(codes, dim=1)
+
+
+class DAC(nn.Module):
+    """Public DAC codec: forward / encode / decode / from_codes / from_latents,
+    the .dac container and process_audio.
+
+    Weights are torch-default random from ``seed`` (made on the CPU, so the
+    same seed gives the same weights on every device) until a folded
+    checkpoint is loaded with ``load_state_dict``. The model lives on
+    ``device``, "cuda" when none is given."""
+
+    def __init__(self, config: DACConfig | None = None, *,
+                 device: torch.device | str | None = None, seed: int = 0):
+        super().__init__()
+        self.config = config or DACConfig()
+        self.hop_length = self.config.hop_length
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.encoder = Encoder(self.config)
+            self.quantizer = ResidualVectorQuantizer(self.config)
+            self.decoder = Decoder(self.config)
+        self.to(resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.quantizer.quantizers[0].codebook.weight.device
+
+    # ----------------------------------------------------------------- compute
+
+    def _forward_fn(self, audio: torch.Tensor, n_quantizers: int | None) -> dict[str, Any]:
+        """Round trip on padded [B, 1, T] audio; internal [B, C, T] layouts."""
+        z_q, codes, latents, commit, cb = self.quantizer(self.encoder(audio), n_quantizers)
+        return {"audio": self.decoder(z_q), "z": z_q, "codes": codes, "latents": latents,
+                "vq/commitment_loss": commit, "vq/codebook_loss": cb}
+
+    # ------------------------------------------------------------- public API
+
+    def _prepare(self, audio) -> tuple[torch.Tensor, int]:
+        """[T] | [B, T] | [B, 1, T] -> padded [B, 1, T'] on the model's device,
+        plus the original length."""
+        a = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        if a.dim() == 1:
+            a = a[None, :]
+        elif a.dim() == 3:
+            a = a[:, 0, :]
+        length = a.shape[-1]
+        padded = -(-length // self.hop_length) * self.hop_length
+        a = torch.nn.functional.pad(a, (0, padded - length))
+        return a[:, None, :].contiguous(), length
+
+    @torch.no_grad()
+    def forward(self, audio, n_quantizers: int | None = None) -> dict[str, Any]:
+        """Round trip: ``audio`` [B, T] (at most the input length), ``z``
+        [B, T, C], ``codes`` [B, Nq, T], ``latents`` [B, T, Nq·D] and the two
+        VQ loss values."""
+        a, length = self._prepare(audio)
+        out = self._forward_fn(a, n_quantizers)
+        out["audio"] = out["audio"][:, 0, :length]
+        out["z"] = out["z"].transpose(1, 2)
+        out["latents"] = out["latents"].transpose(1, 2)
+        return out
+
+    @torch.no_grad()
+    def encode(self, audio, n_quantizers: int | None = None):
+        """Returns (z_q [B, T, C], codes [B, Nq, T], latents [B, T, Nq·D],
+        commitment loss, codebook loss)."""
+        z_q, codes, latents, commit, cb = self.quantizer(
+            self.encoder(self._prepare(audio)[0]), n_quantizers)
+        return z_q.transpose(1, 2), codes, latents.transpose(1, 2), commit, cb
+
+    @torch.no_grad()
+    def decode(self, z_q) -> torch.Tensor:
+        """Latents [B, T, C] -> audio [B, T·hop]."""
+        z_q = torch.as_tensor(z_q, dtype=torch.float32, device=self.device)
+        return self.decoder(z_q.transpose(1, 2).contiguous())[:, 0]
+
+    @torch.no_grad()
+    def from_codes(self, codes) -> torch.Tensor:
+        """Code indices [B, Nq, T] (or [Nq, T]) -> audio [B, T·hop]."""
+        codes = torch.as_tensor(codes, dtype=torch.int32, device=self.device)
+        if codes.dim() == 2:
+            codes = codes[None]
+        return self.decoder(self.quantizer.from_codes(codes))[:, 0]
+
+    @torch.no_grad()
+    def from_latents(self, latents) -> torch.Tensor:
+        """Latents [B, T, Σ D_i] (the stages' z_e) -> audio [B, T·hop]."""
+        latents = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
+        z_q, _ = self.quantizer.from_latents(latents.transpose(1, 2))
+        return self.decoder(z_q)[:, 0]
+
+    def encode_to_file(self, audio, path) -> None:
+        """Encode audio and write the codes and config as a .dac artifact."""
+        from neuralcodecs_tpu_torch.models.dac.dacfile import save_dac_file
+
+        _, codes, _, _, _ = self.encode(audio)
+        save_dac_file(path, [codes.cpu().numpy()], self.config)
+
+    def decode_from_file(self, path) -> torch.Tensor:
+        """Decode audio [B, T·hop] from a .dac artifact."""
+        from neuralcodecs_tpu_torch.models.dac.dacfile import load_dac_file
+
+        codes, _ = load_dac_file(path)
+        return self.from_codes(np.array(codes[0]))  # a writable copy of the buffer
+
+    def process_audio(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
+        """Resample one clip to the model's rate on its device if needed, then
+        round-trip it: [T] in, [T'] out."""
+        audio = torch.as_tensor(np.asarray(audio, dtype=np.float32), device=self.device)
+        if sample_rate != self.config.sample_rate:
+            audio = resample_poly(audio, sample_rate, self.config.sample_rate)
+        return self.forward(audio)["audio"][0].cpu().numpy()

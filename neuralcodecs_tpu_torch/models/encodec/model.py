@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.core.exceptions import CodecError
 from neuralcodecs_tpu_torch.core.weights import fold_weight_norm
 from neuralcodecs_tpu_torch.dsp.overlap import linear_overlap_add
@@ -68,7 +69,8 @@ class Encodec(nn.Module):
     Weights are torch-default random from ``seed`` (made on the CPU, so the
     same seed gives the same weights on every device) until a state dict is
     loaded: the port's own names with ``load_state_dict``, upstream or HF
-    spellings with ``load_upstream_state_dict``."""
+    spellings with ``load_upstream_state_dict``. The model lives on
+    ``device``, "cuda" when none is given."""
 
     def __init__(self, config: EncodecConfig | None = None, *,
                  device: torch.device | str | None = None, seed: int = 0):
@@ -97,7 +99,7 @@ class Encodec(nn.Module):
             self.encoder = SEANetEncoder(**seanet)
             self.decoder = SEANetDecoder(**seanet, trim_right_ratio=cfg.trim_right_ratio)
             self.quantizer = ResidualVectorQuantizer(cfg.codebook_dim, n_q, cfg.codebook_size)
-        self.to(device or "cpu")
+        self.to(resolve_device(device))
 
     # ------------------------------------------------------------------ state
 

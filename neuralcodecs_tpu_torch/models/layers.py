@@ -17,11 +17,7 @@ from torch import nn
 
 from neuralcodecs_tpu_torch.ops.attention import local_mha
 from neuralcodecs_tpu_torch.ops.conv import conv1d, conv_transpose1d
-from neuralcodecs_tpu_torch.ops.kernels.resunit import (
-    KERNEL,
-    fused_residual_unit,
-    residual_unit_plain,
-)
+from neuralcodecs_tpu_torch.ops.kernels.resunit import KERNEL, fused_residual_unit
 from neuralcodecs_tpu_torch.ops.snake import snake
 
 
@@ -75,14 +71,12 @@ class Sequential(nn.Sequential):
 class ResidualUnit(nn.Module):
     """Snake → dilated conv k7 → Snake → 1×1 conv, plus the residual.
 
-    The depthwise form (groups = C, every SNAC preset) runs the fused
-    residual-unit kernel on CUDA; the dense form (groups = 1) runs the
-    plain chain until its kernel is ported."""
+    On CUDA both forms run a fused residual-unit kernel: the depthwise one
+    (groups = C, every SNAC preset) or the dense one (groups = 1, DAC)."""
 
     def __init__(self, dim: int, *, dilation: int = 1, groups: int = 1):
         super().__init__()
         self.dilation = dilation
-        self.depthwise = groups == dim
         pad = (KERNEL - 1) * dilation // 2
         self.block = nn.Sequential(
             Snake1d(dim),
@@ -93,9 +87,8 @@ class ResidualUnit(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s1, c1, s2, c2 = self.block
-        unit = fused_residual_unit if self.depthwise else residual_unit_plain
-        return unit(x, s1.alpha, c1.weight, c1.bias, s2.alpha, c2.weight, c2.bias,
-                    dilation=self.dilation)
+        return fused_residual_unit(x, s1.alpha, c1.weight, c1.bias, s2.alpha, c2.weight,
+                                   c2.bias, dilation=self.dilation)
 
 
 class NoiseBlock(nn.Module):

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.dsp.resample import linear_resample
 from neuralcodecs_tpu_torch.models.layers import (
     LocalMHA,
@@ -184,7 +185,8 @@ class SNAC(nn.Module):
 
     Weights are torch-default random from ``seed`` (made on the CPU, so the
     same seed gives the same weights on every device) until a folded
-    checkpoint is loaded with ``load_state_dict``."""
+    checkpoint is loaded with ``load_state_dict``. The model lives on
+    ``device``, "cuda" when none is given."""
 
     def __init__(self, config: SNACConfig | None = None, *,
                  device: torch.device | str | None = None, seed: int = 0):
@@ -195,7 +197,7 @@ class SNAC(nn.Module):
             self.encoder = Encoder(self.config)
             self.quantizer = ResidualVectorQuantizer(self.config)
             self.decoder = Decoder(self.config)
-        self.to(device or "cpu")
+        self.to(resolve_device(device))
 
     @property
     def device(self) -> torch.device:
@@ -266,7 +268,7 @@ class SNAC(nn.Module):
 
     def process_audio(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
         """Resample to the model's rate if needed, then round-trip one clip."""
-        audio = torch.as_tensor(np.asarray(audio, dtype=np.float32))
+        audio = torch.as_tensor(np.asarray(audio, dtype=np.float32), device=self.device)
         if sample_rate != self.config.sample_rate:
             audio = linear_resample(audio, sample_rate, self.config.sample_rate)
         out, _ = self.forward(audio)

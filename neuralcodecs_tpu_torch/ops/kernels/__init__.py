@@ -4,10 +4,14 @@ from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t
 from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin
 from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow
 from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan
-from neuralcodecs_tpu_torch.ops.kernels.resunit import fused_residual_unit
+from neuralcodecs_tpu_torch.ops.kernels.resunit import (
+    fused_residual_unit,
+    fused_residual_unit_dense,
+)
 
 WRAPPERS = {"codebook_argmin": codebook_argmin,
             "fused_residual_unit": fused_residual_unit,
+            "fused_residual_unit_dense": fused_residual_unit_dense,
             "lstm_scan": lstm_scan,
             "envelope_follow": envelope_follow,
             "biquad_df2t": biquad_df2t}

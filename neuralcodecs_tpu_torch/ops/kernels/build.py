@@ -41,6 +41,8 @@ _SIGNATURES = {
     "nc_codebook_argmin_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, alpha1, w_dil, b_dil, alpha2, w_pw, b_pw, out, B, C, T, dilation, device, stream
     "nc_resunit_depthwise_f32": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    # the same, w_dil re-laid as [7, Cin, Cout]
+    "nc_resunit_dense_f32": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
     # gates_x, w_hh, h0, c0, ys, h_f, c_f, T, B, H, device, stream
     "nc_lstm_scan_f32": [_P] * 7 + [_I, _I, _I, _I, _P],
     # B, H, device, out[3] (launches nothing)

@@ -1,20 +1,21 @@
-"""Fused residual unit: the CUDA kernel csrc/resunit.cu and its plain version.
+"""Fused residual unit: the CUDA kernels csrc/resunit.cu and their plain version.
 
-Replaces neuralcodecs_tpu/ops/pallas/resunit.py:fused_residual_unit
-(depthwise form). One SNAC ResidualUnit is
+Replaces neuralcodecs_tpu/ops/pallas/resunit.py:fused_residual_unit, both
+forms. One ResidualUnit is
 
-    out = x + b1 + W1 · snake(bd + dilconv_k7(snake(x, α1)), α2)
+    out = x + b1 + W1 · snake(bd + dilconv_k7(snake(x, α1); Wd), α2)
 
-On the H100 the pointwise C×C product makes it bound by f32 operations;
-the plain chain adds five full [B, C, T] round trips through device memory.
-The kernel keeps every intermediate on chip (see the header of
-csrc/resunit.cu).
+with a depthwise Wd [C, 1, 7] (SNAC) or a dense Wd [C, C, 7] (DAC). On the
+H100 the C×C products make it bound by f32 operations; the plain chain adds
+five full [B, C, T] round trips through device memory. The kernels keep
+every intermediate on chip (see the header of csrc/resunit.cu).
 
 ``fused_residual_unit`` is the wrapper: the plain version for CPU tensors,
-the kernel for CUDA tensors with the depthwise weights, or an error.
-``fused_residual_unit.launches`` counts kernel launches. The dense
-(groups = 1) form of the kernel is still to be ported; until then
-``residual_unit_plain`` computes that form.
+the depthwise or the dense kernel for CUDA tensors by the shape of Wd, or an
+error. ``fused_residual_unit.launches`` counts depthwise launches and
+``fused_residual_unit_dense.launches`` dense ones. The dense kernel reads Wd
+re-laid to [7, Cin, Cout]; the wrapper makes that copy on every call (16.5
+MB at C = 768; its time is in PERF.md).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from neuralcodecs_tpu_torch.ops.kernels.build import check, device_and_stream, l
 from neuralcodecs_tpu_torch.ops.snake import snake
 
 KERNEL = 7
+_NAMES = ("alpha1", "w_dil", "b_dil", "alpha2", "w_pw", "b_pw")
 
 
 def residual_unit_plain(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torch.Tensor,
@@ -41,45 +43,72 @@ def residual_unit_plain(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torch.Tens
     return x + conv1d(h, w_pw, b_pw)
 
 
-def _check_inputs(x: torch.Tensor, tensors: dict[str, torch.Tensor]) -> None:
+def _check_inputs(x: torch.Tensor, args: tuple, *, dense: bool) -> None:
+    name = "fused_residual_unit_dense" if dense else "fused_residual_unit"
     if x.dim() != 3:
-        raise ValueError(f"fused_residual_unit: x must be [B, C, T], got {tuple(x.shape)}")
+        raise ValueError(f"{name}: x must be [B, C, T], got {tuple(x.shape)}")
     c = x.shape[1]
     shapes = {"alpha1": (c,), "alpha2": (c,), "b_dil": (c,), "b_pw": (c,),
-              "w_dil": (c, 1, KERNEL), "w_pw": (c, c, 1)}
-    for name, t in {"x": x, **tensors}.items():
+              "w_dil": (c, c if dense else 1, KERNEL), "w_pw": (c, c, 1)}
+    for key, t in {"x": x, **dict(zip(_NAMES, args))}.items():
         if t.device != x.device or t.device.type != "cuda":
-            raise ValueError(f"fused_residual_unit: {name} on {t.device}, want {x.device} (cuda)")
+            raise ValueError(f"{name}: {key} on {t.device}, want {x.device} (cuda)")
         if t.dtype != torch.float32:
-            raise TypeError(f"fused_residual_unit: {name} is {t.dtype}, want float32")
+            raise TypeError(f"{name}: {key} is {t.dtype}, want float32")
         if not t.is_contiguous():
-            raise ValueError(f"fused_residual_unit: {name} is not contiguous")
-        if name in shapes:
-            want = shapes[name]
+            raise ValueError(f"{name}: {key} is not contiguous")
+        if key in shapes:
+            want = shapes[key]
             got = tuple(t.shape) if len(want) > 1 else (t.numel(),)
             if got != want:
-                raise ValueError(f"fused_residual_unit: {name} shape {tuple(t.shape)}, "
-                                 f"want {want} (the kernel takes the depthwise form)")
+                raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, want {want}")
+
+
+def _launch(entry: str, x: torch.Tensor, args: tuple, dilation: int) -> torch.Tensor:
+    alpha1, w_dil, b_dil, alpha2, w_pw, b_pw = args
+    b, c, t = x.shape
+    out = torch.empty_like(x)
+    rc = getattr(load_library(), entry)(
+        x.data_ptr(), alpha1.data_ptr(), w_dil.data_ptr(), b_dil.data_ptr(),
+        alpha2.data_ptr(), w_pw.data_ptr(), b_pw.data_ptr(), out.data_ptr(),
+        b, c, t, dilation, *device_and_stream(x))
+    check(rc, entry)
+    return out
+
+
+def _on_cpu(x: torch.Tensor, args: tuple) -> bool:
+    return x.device.type == "cpu" and all(t.device.type == "cpu" for t in args)
 
 
 def fused_residual_unit(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torch.Tensor,
                         b_dil: torch.Tensor, alpha2: torch.Tensor, w_pw: torch.Tensor,
                         b_pw: torch.Tensor, *, dilation: int) -> torch.Tensor:
-    """x + unit(x) for x [B, C, T] f32; arguments as in residual_unit_plain."""
+    """x + unit(x) for x [B, C, T] f32; arguments as in residual_unit_plain.
+    A dense Wd [C, C, 7] (C > 1) goes to ``fused_residual_unit_dense``."""
     args = (alpha1, w_dil, b_dil, alpha2, w_pw, b_pw)
-    if x.device.type == "cpu" and all(t.device.type == "cpu" for t in args):
+    if _on_cpu(x, args):
         return residual_unit_plain(x, *args, dilation=dilation)
-    _check_inputs(x, dict(zip(("alpha1", "w_dil", "b_dil", "alpha2", "w_pw", "b_pw"), args)))
-    lib = load_library()
-    b, c, t = x.shape
-    out = torch.empty_like(x)
-    rc = lib.nc_resunit_depthwise_f32(
-        x.data_ptr(), alpha1.data_ptr(), w_dil.data_ptr(), b_dil.data_ptr(),
-        alpha2.data_ptr(), w_pw.data_ptr(), b_pw.data_ptr(), out.data_ptr(),
-        b, c, t, dilation, *device_and_stream(x))
-    check(rc, "nc_resunit_depthwise_f32")
+    if w_dil.dim() == 3 and w_dil.shape[1] != 1:
+        return fused_residual_unit_dense(x, *args, dilation=dilation)
+    _check_inputs(x, args, dense=False)
+    out = _launch("nc_resunit_depthwise_f32", x, args, dilation)
     fused_residual_unit.launches += 1
     return out
 
 
+def fused_residual_unit_dense(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torch.Tensor,
+                              b_dil: torch.Tensor, alpha2: torch.Tensor, w_pw: torch.Tensor,
+                              b_pw: torch.Tensor, *, dilation: int) -> torch.Tensor:
+    """The dense form (Wd [C, C, 7]) of fused_residual_unit."""
+    args = (alpha1, w_dil, b_dil, alpha2, w_pw, b_pw)
+    if _on_cpu(x, args):
+        return residual_unit_plain(x, *args, dilation=dilation)
+    _check_inputs(x, args, dense=True)
+    w_taps = w_dil.permute(2, 1, 0).contiguous()  # [Cout, Cin, 7] -> [7, Cin, Cout]
+    out = _launch("nc_resunit_dense_f32", x, (alpha1, w_taps, *args[2:]), dilation)
+    fused_residual_unit_dense.launches += 1
+    return out
+
+
 fused_residual_unit.launches = 0
+fused_residual_unit_dense.launches = 0

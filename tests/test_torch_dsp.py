@@ -346,7 +346,7 @@ def test_effects_keep_input_rank(rng):
 def test_audio_signal_dsp_methods_match_jax(rng):
     x = _noise(rng, 2, 2, 9000)
     sr = 16000
-    j, p = JAudioSignal(x, sr), AudioSignal(x, sr)
+    j, p = JAudioSignal(x, sr), AudioSignal(x, sr, device="cpu")
     _assert_rel(p.stft(window_length=512, hop_length=128),
                 j.stft(window_length=512, hop_length=128))
     spec = np.array(j.stft())
@@ -372,7 +372,8 @@ def test_audio_signal_dsp_methods_match_jax(rng):
 def test_audio_signal_containers_match_jax(rng):
     sr = 8000
     a, b = _noise(rng, 1, 4000), _noise(rng, 1, 2400)
-    pa, pb, ja, jb = AudioSignal(a, sr), AudioSignal(b, sr), JAudioSignal(a, sr), JAudioSignal(b, sr)
+    pa, pb = AudioSignal(a, sr, device="cpu"), AudioSignal(b, sr, device="cpu")
+    ja, jb = JAudioSignal(a, sr), JAudioSignal(b, sr)
     assert (pa.batch_size, pa.num_channels, pa.signal_length) == (1, 1, 4000)
     assert dataclasses.astuple(pa.info) == dataclasses.astuple(ja.info)
     assert len(pa) == len(ja) and repr(pa) == repr(ja)
@@ -386,14 +387,14 @@ def test_audio_signal_containers_match_jax(rng):
     with pytest.raises(ValueError):
         AudioSignal.batch([pa, pb], pad=False)
     with pytest.raises(ValueError):
-        AudioSignal.batch([pa, AudioSignal(b, 16000)])
+        AudioSignal.batch([pa, AudioSignal(b, 16000, device="cpu")])
     np.testing.assert_array_equal(pa.concat(pb).audio_data.numpy(),
                                   np.asarray(ja.concat(jb).audio_data))
-    other = AudioSignal(b, 16000)
+    other = AudioSignal(b, 16000, device="cpu")
     np.testing.assert_allclose(pa.concat(other).audio_data.numpy(),
                                np.asarray(ja.concat(JAudioSignal(b, 16000)).audio_data),
                                **AUDIO_TOL)
-    c = AudioSignal(a, sr)
+    c = AudioSignal(a, sr, device="cpu")
     for got, want in (((pa + c), (ja + JAudioSignal(a, sr))), ((pa - 0.5), (ja - 0.5)),
                       ((pa * 2.0), (ja * 2.0)), ((2.0 * pa), (2.0 * ja))):
         np.testing.assert_array_equal(got.audio_data.numpy(), np.asarray(want.audio_data))
@@ -404,15 +405,15 @@ def test_wav_write_load_round_trip(tmp_path, rng, bits):
     x = _noise(rng, 2, 3000, scale=0.5)
     x[0, :2] = (1.5, -1.5)  # clipped
     path = tmp_path / f"x{bits}.wav"
-    AudioSignal(x, 22050).write(path, bits=bits)
+    AudioSignal(x, 22050, device="cpu").write(path, bits=bits)
     with wave.open(str(path), "rb") as f:
         assert (f.getsampwidth(), f.getnchannels(), f.getframerate()) == (bits // 8, 2, 22050)
-    loaded = AudioSignal.load(path)
+    loaded = AudioSignal.load(path, device="cpu")
     assert loaded.sample_rate == 22050 and loaded.audio_data.shape == (1, 2, 3000)
     np.testing.assert_allclose(loaded.audio_data[0].numpy(), np.clip(x, -1, 1),
                                rtol=0, atol=2.0 ** (1 - bits) * 2)
     want = JAudioSignal.load(path, offset=0.01, duration=0.05)
-    got = AudioSignal.load(path, offset=0.01, duration=0.05)
+    got = AudioSignal.load(path, offset=0.01, duration=0.05, device="cpu")
     np.testing.assert_array_equal(got.audio_data.numpy(), np.asarray(want.audio_data))
     if bits == 16:  # the JAX package writes 16-bit files only: the bytes agree
         jpath = tmp_path / "j.wav"
@@ -442,7 +443,7 @@ def test_loudness_path_matches_jax(rng):
     """AudioSignal.loudness / .normalize of 2 mono clips x 0.5 s at 24 kHz."""
     x = _noise(rng, 2, 1, 12000)
     x[1] *= 0.1
-    j, p = JAudioSignal(x, 24000), AudioSignal(x, 24000)
+    j, p = JAudioSignal(x, 24000), AudioSignal(x, 24000, device="cpu")
     np.testing.assert_allclose(p.loudness().numpy(), np.asarray(j.loudness()), rtol=0, atol=1e-3)
     pn, jn = p.normalize(-24.0), j.normalize(-24.0)
     np.testing.assert_allclose(pn.audio_data.numpy(), np.asarray(jn.audio_data), **AUDIO_TOL)

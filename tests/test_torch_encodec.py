@@ -37,7 +37,7 @@ def port_config(jcfg: JEncodecConfig) -> EncodecConfig:
 def build_pair(jcfg: JEncodecConfig, seed: int = 0) -> tuple[JEncodec, Encodec]:
     """A seeded JAX Encodec and the port loaded with the same weights."""
     jmodel = JEncodec(jcfg, seed=seed)
-    port = Encodec(port_config(jcfg))
+    port = Encodec(port_config(jcfg), device="cpu")
     sd = from_jax_params({k: np.asarray(v) for k, v in jmodel.params.items()},
                          transposed_groups(port))
     port.load_state_dict(sd, strict=True)
@@ -140,7 +140,7 @@ def test_vq_projections_match_jax(rng):
 
 def _golden_port() -> tuple[Encodec, np.lib.npyio.NpzFile]:
     g = np.load(GOLDEN)
-    model = Encodec(port_config(tiny_config())).eval()
+    model = Encodec(port_config(tiny_config()), device="cpu").eval()
     model.load_state_dict(from_jax_params({k[3:]: g[k] for k in g.files if k.startswith("sd/")},
                                           transposed_groups(model)), strict=True)
     return model, g
@@ -174,7 +174,7 @@ def test_process_audio_16k_to_24k_matches_jax():
 
 
 def test_bandwidth_selects_nq():
-    port = Encodec(port_config(tiny_config()))
+    port = Encodec(port_config(tiny_config()), device="cpu")
     audio = _audio(1, 1600)[0]
     port.set_target_bandwidth(20.0)
     assert port.encode(audio)[0].codes.shape[1] == 2
@@ -190,7 +190,7 @@ def test_full_width_state_dict_matches_jax(preset):
     assert port_config(jcfg) == getattr(EncodecConfig, preset)()
     jmodel = JEncodec(jcfg, params={})
     want = jax.eval_shape(lambda: jmodel.init_params(0))
-    port = Encodec(getattr(EncodecConfig, preset)())
+    port = Encodec(getattr(EncodecConfig, preset)(), device="cpu")
     got = from_jax_params({k: np.zeros(v.shape, np.float32) for k, v in want.items()},
                           transposed_groups(port))
     sd = port.state_dict()
@@ -248,7 +248,7 @@ def _transformers_pair(seed: int, channels: int, **over):
     tm = transformers.EncodecModel(transformers.EncodecConfig(audio_channels=channels, **kw))
     sd = _seeded_torch_sd(tm, seed)
     tm.load_state_dict(sd)
-    port = Encodec(EncodecConfig(channels=channels, **kw))
+    port = Encodec(EncodecConfig(channels=channels, **kw), device="cpu")
     port.load_upstream_state_dict({k: v.numpy() for k, v in sd.items()})
     return tm.eval(), port.eval()
 

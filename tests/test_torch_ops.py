@@ -33,7 +33,11 @@ from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t, biquad_df2t_p
 from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin, codebook_argmin_plain
 from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow, envelope_follow_plain
 from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan, lstm_scan_plain
-from neuralcodecs_tpu_torch.ops.kernels.resunit import fused_residual_unit, residual_unit_plain
+from neuralcodecs_tpu_torch.ops.kernels.resunit import (
+    fused_residual_unit,
+    fused_residual_unit_dense,
+    residual_unit_plain,
+)
 from neuralcodecs_tpu_torch.ops.snake import snake
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -180,6 +184,26 @@ def test_resunit_plain_matches_pallas_interpret(rng):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+def test_resunit_dense_plain_matches_pallas_interpret(rng):
+    """The dense form (groups = 1, DAC). The Pallas kernel runs its dilated
+    conv as one [T, 7·C] x [7·C, C] product in three bf16 passes (hi·hi +
+    hi·lo + lo·hi), which drops the lo·lo term: about 2^-16 of each product,
+    over K = 7·128 = 896 terms. Measured max abs err 6.3e-5 on outputs up to
+    8.9, hence rtol 1e-4 / atol 1e-4 here (1e-5 for the f32 chains above)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from neuralcodecs_tpu.ops.pallas.resunit import fused_residual_unit as jfused
+
+    t, c, d = 256, 128, 3
+    x = _rand(rng, 1, c, t, scale=0.5)
+    p = _resunit_jax_params(rng, c, groups=1)
+    with pltpu.force_tpu_interpret_mode():
+        want = _btc(jfused(_btc(x), p["alpha1"], p["wd"], p["bd"], p["alpha2"], p["w1"],
+                           p["b1"], k=7, dilation=d, depthwise=False))
+    got = residual_unit_plain(_t(x), *_resunit_port_args(p), dilation=d).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("dilation,groups", [(1, 48), (3, 48), (9, 48), (3, 1)])
 def test_resunit_matches_jax_residual_unit(rng, dilation, groups):
     from neuralcodecs_tpu.models.layers import ResidualUnit as JResidualUnit
@@ -201,8 +225,9 @@ def test_resunit_matches_jax_residual_unit(rng, dilation, groups):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-_NO_LAUNCHES = {"codebook_argmin": 0, "fused_residual_unit": 0, "lstm_scan": 0,
-                "envelope_follow": 0, "biquad_df2t": 0}
+_NO_LAUNCHES = {"codebook_argmin": 0, "fused_residual_unit": 0,
+                "fused_residual_unit_dense": 0, "lstm_scan": 0, "envelope_follow": 0,
+                "biquad_df2t": 0}
 
 
 def _lstm_inputs(rng, t, b, h):
@@ -274,6 +299,10 @@ def test_wrappers_run_plain_on_cpu_without_counting(rng):
     args = _resunit_port_args(p)
     torch.testing.assert_close(fused_residual_unit(xr, *args, dilation=3),
                                residual_unit_plain(xr, *args, dilation=3), rtol=0, atol=0)
+    dense = _resunit_port_args(_resunit_jax_params(rng, 16, groups=1))
+    for fn in (fused_residual_unit, fused_residual_unit_dense):
+        torch.testing.assert_close(fn(xr, *dense, dilation=9),
+                                   residual_unit_plain(xr, *dense, dilation=9), rtol=0, atol=0)
     largs = _lstm_port_args(*_lstm_inputs(rng, 5, 2, 16))
     for got, want in zip(lstm_scan(*largs), lstm_scan_plain(*largs)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -296,6 +325,10 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda(rng):
     with pytest.raises(ValueError):
         fused_residual_unit(torch.empty(1, 16, 20, device="meta"),
                             *_resunit_port_args(p), dilation=1)
+    dense = _resunit_port_args(_resunit_jax_params(rng, 16, groups=1))
+    for fn in (fused_residual_unit, fused_residual_unit_dense):
+        with pytest.raises(ValueError):
+            fn(torch.empty(1, 16, 20, device="meta"), *dense, dilation=3)
     h = 16
     with pytest.raises(ValueError):
         lstm_scan(torch.empty(4, 2, 4 * h, device="meta"), torch.empty(4 * h, h),

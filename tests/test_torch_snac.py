@@ -39,7 +39,7 @@ def tiny_kwargs(**over) -> dict:
 def build_pair(kwargs: dict, seed: int = 0) -> tuple[JSNAC, SNAC]:
     """A seeded JAX SNAC and the port loaded with the same weights."""
     jmodel = JSNAC(JSNACConfig(**kwargs), seed=seed)
-    port = SNAC(SNACConfig(**kwargs))
+    port = SNAC(SNACConfig(**kwargs), device="cpu")
     sd = from_jax_params({k: np.asarray(v) for k, v in jmodel.params.items()},
                          transposed_groups(port))
     port.load_state_dict(sd, strict=True)
@@ -89,7 +89,7 @@ def test_snac_matches_jax(rng, name):
 
 def test_state_dict_names_match_jax_params():
     jmodel = JSNAC(JSNACConfig.snac_24khz())
-    port = SNAC(SNACConfig.snac_24khz())
+    port = SNAC(SNACConfig.snac_24khz(), device="cpu")
     assert set(port.state_dict()) == set(jmodel.params)
     assert len(port.state_dict()) == 198
     assert sum(p.numel() for p in port.parameters()) == sum(
@@ -133,7 +133,7 @@ def test_process_audio_resamples_like_jax(rng):
 
 
 def test_noise_is_seeded_by_the_generator(rng):
-    port = SNAC(SNACConfig(**tiny_kwargs(noise=True)), seed=3).eval()
+    port = SNAC(SNACConfig(**tiny_kwargs(noise=True)), device="cpu", seed=3).eval()
     audio = (0.3 * rng.standard_normal(port.config.pad_to)).astype(np.float32)
     a1, c1 = port.forward(audio)
     a2, _ = port.forward(audio)  # no generator: a fresh one seeded 0 each call
@@ -161,7 +161,7 @@ def test_snac_golden_through_port():
                      decoder_dim=128, decoder_rates=[8, 8, 3, 2], attn_window_size=8,
                      codebook_size=4096, codebook_dim=8, vq_strides=[8, 4, 2, 1],
                      noise=False, depthwise=True)
-    model = SNAC(cfg)
+    model = SNAC(cfg, device="cpu")
     model.load_state_dict({k[3:]: torch.from_numpy(g[k]) for k in g.files
                            if k.startswith("sd/")}, strict=True)
     audio_hat, codes = model.forward(g["audio"])
