@@ -15,8 +15,9 @@ the envelope and biquad kernels bit-exact against their plain loops, runs
 the resample -> compressor -> mel chain at 44.1 -> 24 kHz against the CPU
 and times it with the kernels and with the plain loops, then measures and
 normalises the BS.1770 loudness of the resampled batch. DAC-44k: holds the
-dense residual-unit kernel against the plain chain at every unit shape of a
-10 s stream, reproduces the frozen DAC golden and its .dac bytes, checks
+dense residual-unit kernels (a snake launch and two tensor-core launches a
+unit, 3xTF32) against the plain chain at every unit shape of a 10 s
+stream, reproduces the frozen DAC golden and its .dac bytes, checks
 full-width DAC-44k against itself on the CPU, then serves a few requests
 through it and times its round trip with the kernels and with the plain
 versions. Each served path runs with the launch counters set to 0 just
@@ -26,9 +27,9 @@ over those paths, each kernel's time against its plain version at every
 shape checked, its bound on the card and, where one PyTorch call computes
 the same function, that call's time. torch.profiler passes over the
 Encodec-24k and DAC-44k round trips, the DSP chain and the loudness give
-device time by kernel and idle share. Exits non-zero at
-the first failed phase, and at once when no CUDA device is available. The
-last line is a JSON object naming the device.
+device time by kernel and idle share. Exits non-zero at the first failed
+phase, and at once when no CUDA device is available. The last line is a
+JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -60,8 +61,10 @@ KERNELS = ("codebook_argmin", "fused_residual_unit", "fused_residual_unit_dense"
 _NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): f32 outside the tensor cores
-# (TF32 is off on the port's f32 path) and HBM3
-F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# (TF32 is off for cuDNN and cuBLAS on the port's f32 path), dense TF32 on the
+# tensor cores (the dense residual-unit kernels run f32 products there as
+# three TF32 passes) and HBM3
+F32_FLOPS, TF32_FLOPS, HBM_BYTES_PER_S = 67e12, 495e12, 3.35e12
 KERNEL_TAPS = 7  # the residual unit's dilated conv
 
 
@@ -75,11 +78,12 @@ def phase(name: str, ok: bool, detail: str) -> None:
         raise PhaseError(f"{name}: {detail}")
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take for work of ``flops`` f32
-    operations that must move ``nbytes`` (each input read once, each output
-    written once): the larger of the two times, and which one sets it."""
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> dict:
+    """The least time the card could take for work of ``flops`` operations
+    at ``peak`` per second that must move ``nbytes`` (each input read once,
+    each output written once): the larger of the two times, and which one
+    sets it."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -122,18 +126,28 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
+    """Build the kernels; print ptxas's register and spill report (and any
+    wgmma warning) and, for the dense residual-unit kernels, the count of
+    tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in their SASS.
+    Fails unless every dense instantiation has HGMMA instructions."""
     from neuralcodecs_tpu_torch.ops.kernels import build
 
     t0 = time.time()
     build.load_library()
     seconds = time.time() - t0
     report = [ln.strip() for ln in build.build_log.splitlines()
-              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+              if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+              or "wgmma" in ln.lower()]
     for ln in report:
         print(f"    ptxas: {ln}")
-    phase("build", True, f"{[s.name for s in build.sources()]} -> "
-          f"{build.library_path().name} in {seconds:.1f} s")
-    return {"seconds": seconds, "ptxas": report}
+    sass = build.sass_counts("resunit_dense_gemm")
+    for name, counts in sass.items():
+        print(f"    sass: {name}: {counts}")
+    on_tensor_cores = bool(sass) and all(c["HGMMA"] > 0 for c in sass.values())
+    phase("build", on_tensor_cores,
+          f"{[s.name for s in build.sources()]} -> {build.library_path().name} in "
+          f"{seconds:.1f} s; HGMMA in each of the {len(sass)} dense kernels: {on_tensor_cores}")
+    return {"seconds": seconds, "ptxas": report, "sass": sass}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -248,12 +262,16 @@ def _hold_resunits(label: str, cases: list, n_stream: int, gen: torch.Generator)
     case, within rtol 1e-4/atol 1e-5; time both. The first ``n_stream``
     cases are one stream's units, whose times and bound are summed. A unit
     does 2 T C (7 C/g + C) flops (its dilated conv, then the C x C
-    pointwise) and reads x and its weights once and writes out once."""
+    pointwise) and reads x and its weights once and writes out once. The
+    dense kernels run those flops as three TF32 passes on the tensor cores:
+    their bound is 3 x flops at the TF32 peak, with the f32 FMA bound (one
+    pass at the f32 peak) beside it as ``bound_f32_ms``."""
     from neuralcodecs_tpu_torch.ops.kernels.resunit import (
         fused_residual_unit, residual_unit_plain)
 
     rows, err, bad = [], 0.0, []
     total_ms = total_plain_ms = flops = nbytes = 0.0
+    dense = _unit_args(cases[0][0])[1].shape[1] != 1
     for unit, t, b in cases:
         args = _unit_args(unit)
         c, w_dil = args[0].shape[1], args[1]
@@ -278,8 +296,12 @@ def _hold_resunits(label: str, cases: list, n_stream: int, gen: torch.Generator)
                      "plain_ms": plain_ms, "max_abs_err": e})
         print(f"    {label} C={c} d={unit.dilation} T={t} B={b}: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, max|err| {e:.2e}{'' if close else '  MISMATCH'}")
-    return {"rows": rows, "max_abs_err": err, "ms": total_ms, "plain_ms": total_plain_ms,
-            "library_ms": None, "mismatches": bad, **bound(flops, nbytes)}
+    res = {"rows": rows, "max_abs_err": err, "ms": total_ms, "plain_ms": total_plain_ms,
+           "library_ms": None, "mismatches": bad, **bound(flops, nbytes)}
+    if dense:
+        res["bound_f32_ms"] = res["bound_ms"]
+        res.update(bound(3 * flops, nbytes, TF32_FLOPS))
+    return res
 
 
 def phase_resunit(model, gen: torch.Generator, samples: int) -> dict:
@@ -1031,11 +1053,17 @@ def phase_loudness(resampled: torch.Tensor, card: str) -> dict:
 
 
 def phase_resunit_dense(model, gen: torch.Generator) -> dict:
-    """The dense kernel against the plain chain at every dense unit shape of
+    """The dense kernels against the plain chain at every dense unit shape of
     one DAC-44k 10 s stream (B = 1, the 24 units of its forward), and at the
     edge cases: C = 8 and C = 96 at T = 1037, B = 2 (ragged channel tile and
-    time tail), and C = 768, d = 9, T = 6896, B = 4 (the server's batch)."""
+    time tail), and C = 768, d = 9, T = 6896, B = 4 (the server's batch).
+    The kernels' 3xTF32 products sum in another order than cuDNN's f32 FMAs,
+    so they agree within rtol 1e-4/atol 1e-5, not bit for bit. Prints each
+    C's kernel and plain time over its three units and flags every C where
+    the kernel is slower; times the wrapper's weight split and re-layout at
+    C = 768."""
     from neuralcodecs_tpu_torch.models.layers import ResidualUnit
+    from neuralcodecs_tpu_torch.ops.kernels.resunit import pack_dense_weights
 
     units = _residual_units(model)
     lengths = _unit_lengths(model, _dac_padded(10 * model.config.sample_rate, model))
@@ -1046,13 +1074,24 @@ def phase_resunit_dense(model, gen: torch.Generator) -> dict:
     cases = [(u, t, 1) for u, t in zip(units, lengths)]
     cases += [(narrow, 1037, 2), (by_shape[(96, 9)], 1037, 2), (by_shape[(768, 9)], 6896, 4)]
     res = _hold_resunits("resunit dense", cases, len(units), gen)
-    w = _unit_args(by_shape[(768, 9)])[1]
-    res["relayout_ms_c768"] = time_ms(lambda: w.permute(2, 1, 0).contiguous(), 20)
+    per_c: dict[int, list[float]] = {}
+    for row in res["rows"][: len(units)]:
+        ms = per_c.setdefault(row["C"], [0.0, 0.0])
+        ms[0] += row["ms"]
+        ms[1] += row["plain_ms"]
+    res["per_c"] = {c: {"ms": k, "plain_ms": p, "slower": k > p} for c, (k, p) in per_c.items()}
+    for c, r in res["per_c"].items():
+        print(f"    resunit dense C={c}, its 3 units: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms" + ("  SLOWER THAN PLAIN" if r["slower"] else ""))
+    _, w_dil, _, _, w_pw, _ = _unit_args(by_shape[(768, 9)])
+    res["split_ms_c768"] = time_ms(lambda: pack_dense_weights(w_dil, w_pw), 20)
+    slower = [c for c, r in res["per_c"].items() if r["slower"]]
     phase("resunit dense kernel vs plain", not res["mismatches"],
           f"{len(cases)} shapes within rtol 1e-4/atol 1e-5 (max|err| {res['max_abs_err']:.2e}); "
           f"one 10 s stream's 24 units: kernel {res['ms']:.2f} ms, plain {res['plain_ms']:.2f} "
-          f"ms, bound {res['bound_ms']:.2f} ms ({res['bound_by']}); the wrapper's Wd re-layout "
-          f"at C = 768: {res['relayout_ms_c768']:.4f} ms a call"
+          f"ms, bound {res['bound_ms']:.2f} ms ({res['bound_by']}, 3xTF32; f32 FMA bound "
+          f"{res['bound_f32_ms']:.2f} ms); slower than plain at C = {slower or 'none'}; the "
+          f"wrapper's weight split and re-layout at C = 768: {res['split_ms_c768']:.4f} ms a call"
           + (f"; mismatches {res['mismatches']}" if res["mismatches"] else ""))
     return res
 
@@ -1228,9 +1267,19 @@ def phase_dac_serve(model, card: str) -> dict:
         times[mode].append(ms)
         peak[mode] = gb
     kernel_ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    prof = _device_profile(lambda: model.forward(batch), kernel_ms, "resunit_dense_kernel",
-                           n_units)
+    prof = _device_profile(lambda: model.forward(batch), kernel_ms, "resunit_dense_gemm",
+                           2 * n_units)  # two GEMM launches a unit (and snake_rows)
     _print_profile("dac kernel", prof, kernel_ms)
+    if prof["complete"]:
+        prof["dense_split_ms"] = {
+            part: sum(ms for k, ms, _ in prof["top"] if name in k and tag in k)
+            for part, name, tag in (("snake", "snake_rows", ""),
+                                    ("conv", "resunit_dense_gemm", "true>"),
+                                    ("pointwise", "resunit_dense_gemm", "false>"))}
+        split = prof["dense_split_ms"]
+        print(f"    profile dac kernel: dense units' snake(x) launches {split['snake']:.2f} ms, "
+              f"conv launches {split['conv']:.2f} ms, pointwise launches "
+              f"{split['pointwise']:.2f} ms per forward")
     xrt = 40.0 / (kernel_ms / 1e3)
     phase("dac serve", counts == want,
           f"{forwards} forwards (2x 4x10 s batch, 3x3 s padded to 4, process_audio 48k) and "
@@ -1271,7 +1320,8 @@ def _entry(name: str, source: str, replaces: str, launches: dict, res: dict) -> 
             "replaces": f"neuralcodecs_tpu/ops/pallas/{replaces}",
             "launches": launches[name], "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"], "shapes": res["rows"]}
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"], "shapes": res["rows"],
+            **({"bound_f32_ms": res["bound_f32_ms"]} if "bound_f32_ms" in res else {})}
 
 
 def main() -> int:
@@ -1323,8 +1373,8 @@ def main() -> int:
     kernels_line = {"kernels": [
         _entry("codebook_argmin", "codebook.cu", "codebook.py:46", launches, cb),
         _entry("fused_residual_unit", "resunit.cu", "resunit.py:154", launches, ru),
-        _entry("fused_residual_unit_dense", "resunit.cu", "resunit.py:154 (depthwise=False)",
-               launches, ru_dense),
+        _entry("fused_residual_unit_dense", "resunit_dense.cu",
+               "resunit.py:154 (depthwise=False)", launches, ru_dense),
         _entry("lstm_scan", "lstm.cu", "lstm.py:103", launches, lstm),
         _entry("envelope_follow", "envelope.cu", "envelope.py:75", launches, env),
         _entry("biquad_df2t", "biquad.cu", "biquad.py:69", launches, bq),

@@ -41,8 +41,10 @@ _SIGNATURES = {
     "nc_codebook_argmin_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, alpha1, w_dil, b_dil, alpha2, w_pw, b_pw, out, B, C, T, dilation, device, stream
     "nc_resunit_depthwise_f32": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
-    # the same, w_dil re-laid as [7, Cin, Cout]
-    "nc_resunit_dense_f32": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    # x, alpha1, wd_big, wd_small, b_dil, alpha2, w1_big, w1_small, b_pw, y (scratch),
+    # out, B, C, T, dilation, device, stream; the weights split and re-laid by
+    # resunit.pack_dense_weights
+    "nc_resunit_dense_f32": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
     # gates_x, w_hh, h0, c0, ys, h_f, c_f, T, B, H, device, stream
     "nc_lstm_scan_f32": [_P] * 7 + [_I, _I, _I, _I, _P],
     # B, H, device, out[3] (launches nothing)
@@ -124,6 +126,26 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def sass_counts(kernel: str, opcodes: tuple[str, ...] = ("HGMMA", "HMMA")) -> dict:
+    """{function: {opcode: count}} over the built library's SASS
+    (``cuobjdump -sass``) for every function whose name holds ``kernel``:
+    shows whether a kernel runs on the tensor cores."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = counts.setdefault(name, dict.fromkeys(opcodes, 0)) if kernel in name else None
+        elif current is not None:
+            for op in opcodes:
+                if f" {op}." in line or f" {op} " in line:
+                    current[op] += 1
+    return counts
 
 
 def device_and_stream(t) -> tuple[int, int]:

@@ -1,4 +1,5 @@
-"""Fused residual unit: the CUDA kernels csrc/resunit.cu and their plain version.
+"""Fused residual unit: the CUDA kernels csrc/resunit.cu and csrc/resunit_dense.cu
+and their plain version.
 
 Replaces neuralcodecs_tpu/ops/pallas/resunit.py:fused_residual_unit, both
 forms. One ResidualUnit is
@@ -6,21 +7,27 @@ forms. One ResidualUnit is
     out = x + b1 + W1 · snake(bd + dilconv_k7(snake(x, α1); Wd), α2)
 
 with a depthwise Wd [C, 1, 7] (SNAC) or a dense Wd [C, C, 7] (DAC). On the
-H100 the C×C products make it bound by f32 operations; the plain chain adds
-five full [B, C, T] round trips through device memory. The kernels keep
-every intermediate on chip (see the header of csrc/resunit.cu).
+H100 the C×C products make it bound by operations; the plain chain adds
+five full [B, C, T] round trips through device memory. The depthwise
+kernel keeps every intermediate on chip with f32 FMAs (csrc/resunit.cu).
+The dense form runs on the tensor cores in 3xTF32 (csrc/resunit_dense.cu):
+three launches a unit, snake(x, α1), the dilated conv into a scratch y, then
+the pointwise product with bias and residual.
 
 ``fused_residual_unit`` is the wrapper: the plain version for CPU tensors,
 the depthwise or the dense kernel for CUDA tensors by the shape of Wd, or an
 error. ``fused_residual_unit.launches`` counts depthwise launches and
-``fused_residual_unit_dense.launches`` dense ones. The dense kernel reads Wd
-re-laid to [7, Cin, Cout]; the wrapper makes that copy on every call (16.5
-MB at C = 768; its time is in PERF.md).
+``fused_residual_unit_dense.launches`` dense units (one a call, though a
+call makes three launches). The dense kernels read Wd re-laid to
+[7, Cout, Cin] and W1 [Cout, Cin], each split into its TF32 part and the
+rest (``pack_dense_weights``, on every call: its time at C = 768 is in
+PERF.md).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from neuralcodecs_tpu_torch.ops.conv import conv1d
 from neuralcodecs_tpu_torch.ops.kernels.build import check, device_and_stream, load_library
@@ -41,6 +48,27 @@ def residual_unit_plain(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torch.Tens
                dilation=dilation, groups=groups)
     h = snake(h, alpha2)
     return x + conv1d(h, w_pw, b_pw)
+
+
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) for f32 ``w``: big is w rounded to TF32 (10 mantissa
+    bits, to nearest with ties away from zero, as ``cvt.rna.tf32.f32``
+    does), small = w - big, exact in f32, so big + small == w."""
+    bits = w.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return big, w - big
+
+
+def pack_dense_weights(w_dil: torch.Tensor, w_pw: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The dense kernels' weights: Wd [C, C, 7] re-laid to [7, Cout, Cin]
+    and W1 [C, C, 1] to [Cout, Cin], Cin zero-padded to a multiple of 4 (TMA
+    rows are whole 16-byte units), each split by ``tf32_split``. Returns
+    (wd_big, wd_small, w1_big, w1_small)."""
+    c = w_dil.shape[0]
+    pad = (0, -c % 4)
+    wd = F.pad(w_dil.permute(2, 0, 1), pad).contiguous()
+    w1 = F.pad(w_pw[:, :, 0], pad).contiguous()
+    return (*tf32_split(wd), *tf32_split(w1))
 
 
 def _check_inputs(x: torch.Tensor, args: tuple, *, dense: bool) -> None:
@@ -65,12 +93,10 @@ def _check_inputs(x: torch.Tensor, args: tuple, *, dense: bool) -> None:
 
 
 def _launch(entry: str, x: torch.Tensor, args: tuple, dilation: int) -> torch.Tensor:
-    alpha1, w_dil, b_dil, alpha2, w_pw, b_pw = args
     b, c, t = x.shape
     out = torch.empty_like(x)
     rc = getattr(load_library(), entry)(
-        x.data_ptr(), alpha1.data_ptr(), w_dil.data_ptr(), b_dil.data_ptr(),
-        alpha2.data_ptr(), w_pw.data_ptr(), b_pw.data_ptr(), out.data_ptr(),
+        x.data_ptr(), *(a.data_ptr() for a in args), out.data_ptr(),
         b, c, t, dilation, *device_and_stream(x))
     check(rc, entry)
     return out
@@ -104,8 +130,11 @@ def fused_residual_unit_dense(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torc
     if _on_cpu(x, args):
         return residual_unit_plain(x, *args, dilation=dilation)
     _check_inputs(x, args, dense=True)
-    w_taps = w_dil.permute(2, 1, 0).contiguous()  # [Cout, Cin, 7] -> [7, Cin, Cout]
-    out = _launch("nc_resunit_dense_f32", x, (alpha1, w_taps, *args[2:]), dilation)
+    wd_big, wd_small, w1_big, w1_small = pack_dense_weights(w_dil, w_pw)
+    y = torch.empty_like(x)  # the dilated conv's output, read by the pointwise launch
+    out = _launch("nc_resunit_dense_f32", x,
+                  (alpha1, wd_big, wd_small, b_dil, alpha2, w1_big, w1_small, b_pw, y),
+                  dilation)
     fused_residual_unit_dense.launches += 1
     return out
 
