@@ -4,17 +4,22 @@
 
 Builds the port's CUDA kernels from neuralcodecs_tpu_torch/csrc and holds
 each against its plain PyTorch version at the shapes its round trips give
-it. SNAC-24k: checks the port against the frozen SNAC golden and against
-itself on the CPU, then serves a few requests through full-width SNAC-24k
+it. SNAC-24k: holds the depthwise residual-unit kernels (a depthwise launch
+and a tensor-core launch a unit, 3xTF32) against the plain chain at every
+unit shape of a 10 s stream, checks the port against the frozen SNAC golden
+and against itself on the CPU, then serves a few requests through full-width SNAC-24k
 (seeded random weights). Encodec: reproduces the frozen raw .ecdc stream,
-checks full-width Encodec-24k against itself on the CPU, serves a few
+holds the LSTM recurrence kernel against its plain loop beside the
+floor of its per-step handoff, checks full-width Encodec-24k against
+itself on the CPU, serves a few
 requests through it and times its round trip with the kernels and with
 the plain versions, then runs full-width stereo Encodec-48k through its
 chunked forward. DSP (BASELINE.json config 4, 64 clips of 10 s): holds
 the envelope and biquad kernels bit-exact against their plain loops, runs
 the resample -> compressor -> mel chain at 44.1 -> 24 kHz against the CPU
 and times it with the kernels and with the plain loops, then measures and
-normalises the BS.1770 loudness of the resampled batch. DAC-44k: holds the
+normalises the BS.1770 loudness of the resampled batch (also handed over as
+a numpy array, which must run on the card). DAC-44k: holds the
 dense residual-unit kernels (a snake launch and two tensor-core launches a
 unit, 3xTF32) against the plain chain at every unit shape of a 10 s
 stream, reproduces the frozen DAC golden and its .dac bytes, checks
@@ -62,7 +67,7 @@ _NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): f32 outside the tensor cores
 # (TF32 is off for cuDNN and cuBLAS on the port's f32 path), dense TF32 on the
-# tensor cores (the dense residual-unit kernels run f32 products there as
+# tensor cores (the residual-unit kernels run f32 products there as
 # three TF32 passes) and HBM3
 F32_FLOPS, TF32_FLOPS, HBM_BYTES_PER_S = 67e12, 495e12, 3.35e12
 KERNEL_TAPS = 7  # the residual unit's dilated conv
@@ -106,19 +111,20 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def phase_device() -> dict:
-    from neuralcodecs_tpu_torch.ops.precision import disable_tf32, tf32_disabled
+    """The card, and the port's TF32 policy as its import left it: nothing
+    here sets a flag."""
+    from neuralcodecs_tpu_torch.ops.precision import tf32_disabled
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else ""
     print(card, flush=True)
-    disable_tf32()
     info = {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
             "smi": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     phase("device", bool(card) and tf32_disabled(),
           f"{info['name']} x{info['count']}, nvidia-smi '{card}', torch {info['torch']} "
-          f"cuda {info['cuda']}, tf32 off={tf32_disabled()}")
+          f"cuda {info['cuda']}, tf32 off after import={tf32_disabled()}")
     return info
 
 
@@ -127,9 +133,11 @@ def phase_device() -> dict:
 
 def phase_build() -> dict:
     """Build the kernels; print ptxas's register and spill report (and any
-    wgmma warning) and, for the dense residual-unit kernels, the count of
+    wgmma warning) and, for the residual-unit GEMM kernels, the count of
     tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in their SASS.
-    Fails unless every dense instantiation has HGMMA instructions."""
+    Fails unless every instantiation of the residual unit's GEMM (both
+    forms' pointwise launch, the dense form's conv launch) has HGMMA
+    instructions."""
     from neuralcodecs_tpu_torch.ops.kernels import build
 
     t0 = time.time()
@@ -140,13 +148,14 @@ def phase_build() -> dict:
               or "wgmma" in ln.lower()]
     for ln in report:
         print(f"    ptxas: {ln}")
-    sass = build.sass_counts("resunit_dense_gemm")
+    sass = build.sass_counts("resunit_gemm")
     for name, counts in sass.items():
         print(f"    sass: {name}: {counts}")
     on_tensor_cores = bool(sass) and all(c["HGMMA"] > 0 for c in sass.values())
     phase("build", on_tensor_cores,
           f"{[s.name for s in build.sources()]} -> {build.library_path().name} in "
-          f"{seconds:.1f} s; HGMMA in each of the {len(sass)} dense kernels: {on_tensor_cores}")
+          f"{seconds:.1f} s; HGMMA in each of the {len(sass)} residual-unit GEMM kernels: "
+          f"{on_tensor_cores}")
     return {"seconds": seconds, "ptxas": report, "sass": sass}
 
 
@@ -260,18 +269,20 @@ def _unit_lengths(model, samples: int) -> list[int]:
 def _hold_resunits(label: str, cases: list, n_stream: int, gen: torch.Generator) -> dict:
     """Hold fused_residual_unit against the plain chain for each (unit, T, B)
     case, within rtol 1e-4/atol 1e-5; time both. The first ``n_stream``
-    cases are one stream's units, whose times and bound are summed. A unit
-    does 2 T C (7 C/g + C) flops (its dilated conv, then the C x C
-    pointwise) and reads x and its weights once and writes out once. The
-    dense kernels run those flops as three TF32 passes on the tensor cores:
-    their bound is 3 x flops at the TF32 peak, with the f32 FMA bound (one
-    pass at the f32 peak) beside it as ``bound_f32_ms``."""
+    cases are one stream's units, whose times and bound are summed, and
+    summed again per C (``per_c``, with a flag where the kernel is slower
+    than plain). A unit does 2 T C 7 C/g flops in its dilated conv and
+    2 T C^2 in its C x C pointwise product, and reads x and its weights once
+    and writes out once. The kernels run on the tensor cores as three TF32
+    passes: the dense form both products, the depthwise form the pointwise
+    one (its taps stay f32 FMAs). Their bound counts that work at those
+    peaks, with the f32 FMA bound (every flop once at the f32 peak) beside
+    it as ``bound_f32_ms``."""
     from neuralcodecs_tpu_torch.ops.kernels.resunit import (
         fused_residual_unit, residual_unit_plain)
 
     rows, err, bad = [], 0.0, []
-    total_ms = total_plain_ms = flops = nbytes = 0.0
-    dense = _unit_args(cases[0][0])[1].shape[1] != 1
+    total_ms = total_plain_ms = flops = tc_flops = nbytes = 0.0
     for unit, t, b in cases:
         args = _unit_args(unit)
         c, w_dil = args[0].shape[1], args[1]
@@ -284,34 +295,61 @@ def _hold_resunits(label: str, cases: list, n_stream: int, gen: torch.Generator)
         err = max(err, e)
         if not close:
             bad.append((c, unit.dilation, t, b, e))
-        iters = 3 if b * c * t > 10_000_000 else 10
-        ms = time_ms(lambda: fused_residual_unit(x, *args, dilation=unit.dilation), iters)
-        plain_ms = time_ms(lambda: residual_unit_plain(x, *args, dilation=unit.dilation), iters)
+        # 20 launches: a mean over 3 read 13-20% above the launches' profiled
+        # sum (tools/resunit_ablate.py) at SNAC's long units
+        ms = time_ms(lambda: fused_residual_unit(x, *args, dilation=unit.dilation), 20, 3)
+        plain_ms = time_ms(lambda: residual_unit_plain(x, *args, dilation=unit.dilation), 20, 3)
         if len(rows) < n_stream:
             total_ms += ms
             total_plain_ms += plain_ms
-            flops += 2.0 * t * c * (KERNEL_TAPS * w_dil.shape[1] + c)
+            conv, pointwise = 2.0 * t * c * KERNEL_TAPS * w_dil.shape[1], 2.0 * t * c * c
+            flops += conv + pointwise
+            # in TF32-peak operations: three passes of each product on the
+            # tensor cores, the depthwise taps at the f32 rate
+            dense = w_dil.shape[1] != 1
+            tc_flops += 3 * pointwise + (3 * conv if dense else conv * TF32_FLOPS / F32_FLOPS)
             nbytes += 4.0 * (2 * c * t + w_dil.numel() + c * c + 4 * c)
         rows.append({"C": c, "dilation": unit.dilation, "T": t, "B": b, "ms": ms,
                      "plain_ms": plain_ms, "max_abs_err": e})
         print(f"    {label} C={c} d={unit.dilation} T={t} B={b}: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, max|err| {e:.2e}{'' if close else '  MISMATCH'}")
-    res = {"rows": rows, "max_abs_err": err, "ms": total_ms, "plain_ms": total_plain_ms,
-           "library_ms": None, "mismatches": bad, **bound(flops, nbytes)}
-    if dense:
-        res["bound_f32_ms"] = res["bound_ms"]
-        res.update(bound(3 * flops, nbytes, TF32_FLOPS))
-    return res
+    per_c: dict[int, list[float]] = {}
+    for row in rows[:n_stream]:
+        ms = per_c.setdefault(row["C"], [0.0, 0.0])
+        ms[0] += row["ms"]
+        ms[1] += row["plain_ms"]
+    for c, (k, p) in per_c.items():
+        print(f"    {label} C={c}, one stream's units: kernel {k:.3f} ms, plain {p:.3f} ms"
+              + ("  SLOWER THAN PLAIN" if k > p else ""))
+    return {"rows": rows, "max_abs_err": err, "ms": total_ms, "plain_ms": total_plain_ms,
+            "library_ms": None, "mismatches": bad,
+            "per_c": {c: {"ms": k, "plain_ms": p, "slower": k > p} for c, (k, p) in per_c.items()},
+            "bound_f32_ms": bound(flops, nbytes)["bound_ms"],
+            **bound(tc_flops, nbytes, TF32_FLOPS)}
 
 
 def phase_resunit(model, gen: torch.Generator, samples: int) -> dict:
+    """The depthwise kernels (a depthwise launch, then the pointwise GEMM on
+    the tensor cores, 3xTF32) against the plain chain at every unit shape of
+    one SNAC-24k 10 s stream, at a ragged tail at B = 2, and at a
+    SNAC-44k-wide unit (C = 768, d = 9) at T % 4 != 0, where the GEMM copies
+    its windows with cp.async instead of TMA."""
+    from neuralcodecs_tpu_torch.models.layers import ResidualUnit
+
     units = _residual_units(model)
     cases = [(u, t, 1) for u, t in zip(units, _unit_lengths(model, samples))]
     cases.append((units[0], 1037, 2))  # ragged tail, two streams
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        wide = ResidualUnit(768, dilation=9, groups=768).to(DEVICE)
+    cases.append((wide, 6899, 1))
     res = _hold_resunits("resunit", cases, len(units), gen)
+    slower = [c for c, r in res["per_c"].items() if r["slower"]]
     phase("resunit kernel vs plain", not res["mismatches"],
           f"{len(cases)} shapes within rtol 1e-4/atol 1e-5 (max|err| {res['max_abs_err']:.2e}); "
-          f"one 10 s stream's 24 units: kernel {res['ms']:.2f} ms, plain {res['plain_ms']:.2f} ms"
+          f"one 10 s stream's 24 units: kernel {res['ms']:.2f} ms, plain {res['plain_ms']:.2f} "
+          f"ms, bound {res['bound_ms']:.2f} ms ({res['bound_by']}; f32 FMA bound "
+          f"{res['bound_f32_ms']:.2f} ms); slower than plain at C = {slower or 'none'}"
           + (f"; mismatches {res['mismatches']}" if res["mismatches"] else ""))
     return res
 
@@ -503,12 +541,16 @@ def phase_serve(model, card: str) -> dict:
     want = {**_NO_LAUNCHES, "codebook_argmin": n_stages * forwards,
             "fused_residual_unit": n_units * forwards}
     xrt = 40.0 / (warm_ms / 1e3)
+    # device time by kernel of the warm batch-4 forward (K0d, one a unit)
+    batch = np.stack(long_reqs)
+    prof = _device_profile(lambda: model.forward(batch, gen), warm_ms, "depthwise_rows", n_units)
+    _print_profile("snac", prof, warm_ms)
     phase("serve", counts == want,
           f"{forwards} forwards (2x 4x10 s batch, 3x3 s padded to 4, process_audio 44.1k); "
           f"launches {counts} == {want}; warm batch-4 10 s round trip {warm_ms:.1f} ms "
           f"(CUDA events; host {wall_s * 1e3:.1f} ms) = {xrt:.1f}x realtime on {card}")
     return {"counts": counts, "forwards": forwards, "warm_ms": warm_ms,
-            "host_ms": wall_s * 1e3, "xrt": xrt}
+            "host_ms": wall_s * 1e3, "xrt": xrt, "profile": prof}
 
 
 # ------------------------------------------------------- Encodec phases
@@ -530,17 +572,29 @@ def phase_lstm(model, gen: torch.Generator) -> dict:
     4 x 10 s batch and 1 s stream, the 48 kHz chunk batch and tail; and at
     the kernel's edge cases: H = 128 with B = 3 rows of an 8-row tile, B = 96
     at H = 512 (more rows than one pass stages, so each step takes two), and
-    H = 518 (the last block owns fewer units than the others). The phase
-    fails unless the launch plans show those last two paths taken."""
+    H = 518 (the last block owns fewer units than the others); and T = 1
+    from a given h0 / c0, as a streaming step calls it. The phase
+    fails unless the launch plans show those last two paths taken. Each case
+    reports its time a step and ``floor_ms``: the time of the kernel with
+    everything but its per-step handoff taken out (tools/lstm_ablate.py's
+    handoff_only variant, built here), which T steps cannot beat."""
+    import importlib.util
+
     from neuralcodecs_tpu_torch.ops.kernels.lstm import (
         lstm_scan, lstm_scan_plain, lstm_scan_plan)
+
+    spec = importlib.util.spec_from_file_location("lstm_ablate", ROOT / "tools" / "lstm_ablate.py")
+    ablate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablate)
+    handoff = ablate.build_variants(["handoff_only"])["handoff_only"]
 
     dev = torch.device(DEVICE)
     w512 = _slstm(model, "encoder").lstm.weight_hh_l0.detach()
     cases = [("24k 4x10 s", 750, 4, 512), ("24k 1 s", 75, 1, 512),
              ("48k 10 chunks", 150, 10, 512), ("48k tail", 15, 1, 512),
              ("H=128 B=3", 37, 3, 128), ("B=96, two passes a step", 40, 96, 512),
-             ("H=518, ragged last block", 50, 2, 518)]
+             ("H=518, ragged last block", 50, 2, 518),
+             ("T=1 from h0/c0, a streaming step", 1, 2, 512)]
     rows, err, bad = [], 0.0, []
     chunked = ragged = False
     for name, t, b, h in cases:
@@ -561,10 +615,13 @@ def phase_lstm(model, gen: torch.Generator) -> dict:
             bad.append((name, e))
         ms = time_ms(lambda: lstm_scan(gx, w_hh, h0, c0), 10)
         plain_ms = time_ms(lambda: lstm_scan_plain(gx, w_hh, h0, c0), 3, 1)
+        floor_ms = time_ms(ablate.launcher(handoff, gx, w_hh, h0, c0)[0], 10)
         rows.append({"case": name, "T": t, "B": b, "H": h, "U": u, "blocks": blocks, "BS": bs,
-                     "ms": ms, "plain_ms": plain_ms, "max_abs_err": e})
+                     "ms": ms, "step_us": ms / t * 1e3, "floor_ms": floor_ms,
+                     "plain_ms": plain_ms, "max_abs_err": e})
         print(f"    lstm {name}: T={t} B={b} H={h} (U={u}, {blocks} blocks, BS={bs}): "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"kernel {ms:.3f} ms ({ms / t * 1e3:.2f} us a step; handoff floor "
+              f"{floor_ms:.3f} ms), plain {plain_ms:.3f} ms, "
               f"max|err| {e:.2e}{'' if close else '  MISMATCH'}")
     # the main path's shape (24 kHz 4 x 10 s): the bound of the recurrence
     # (h @ W_hh and the gate arithmetic) and cuDNN's LSTM, which also runs
@@ -579,9 +636,13 @@ def phase_lstm(model, gen: torch.Generator) -> dict:
           f"{len(cases)} shapes (ys, h_f, c_f) within rtol 1e-5/atol 1e-6 "
           f"(max|err| {err:.2e}); a case with B > BS: {chunked}, with a ragged last "
           f"block: {ragged}; torch.nn.LSTM (cuDNN, with its input projection) at "
-          f"T={t} B={b} H={h}: {library_ms:.3f} ms" + (f"; mismatches {bad}" if bad else ""))
+          f"T={t} B={b} H={h}: {library_ms:.3f} ms; the kernel there {rows[0]['ms']:.3f} ms, "
+          f"{rows[0]['step_us']:.2f} us a step, handoff floor {rows[0]['floor_ms']:.3f} ms"
+          + (f"; mismatches {bad}" if bad else ""))
     return {"rows": rows, "max_abs_err": err, "ms": rows[0]["ms"],
-            "plain_ms": rows[0]["plain_ms"], "library_ms": library_ms, **bound(flops, nbytes)}
+            "plain_ms": rows[0]["plain_ms"], "library_ms": library_ms,
+            "step_us": rows[0]["step_us"], "floor_ms": rows[0]["floor_ms"],
+            **bound(flops, nbytes)}
 
 
 def _golden_encodec_config():
@@ -1017,8 +1078,15 @@ def phase_loudness(resampled: torch.Tensor, card: str) -> dict:
     from neuralcodecs_tpu_torch.dsp import AudioSignal
     from neuralcodecs_tpu_torch.ops import kernels
 
+    from neuralcodecs_tpu_torch.dsp.loudness import integrated_loudness
+
     sig = AudioSignal(resampled[:, None, :], DSP_DST)
     sig.loudness()  # warm
+    # a numpy batch goes to the card, as jnp.asarray puts it on the TPU
+    kernels.reset_launch_counts()
+    lufs_np = integrated_loudness(resampled[:, None, :].cpu().numpy(), DSP_DST)
+    counts_np = kernels.launch_counts()
+    np_on_card = lufs_np.device.type == "cuda" and counts_np["biquad_df2t"] == 2
     kernels.reset_launch_counts()
     lufs, ms = _timed(sig.loudness)
     counts = kernels.launch_counts()
@@ -1033,19 +1101,22 @@ def phase_loudness(resampled: torch.Tensor, card: str) -> dict:
     peak = _peak_gb(sig.loudness)
     with _plain_dsp_kernels():
         lufs_plain, plain_ms = _timed(sig.loudness)
-    same = torch.equal(lufs, lufs_plain)
+    same = torch.equal(lufs, lufs_plain) and torch.equal(lufs_np, lufs)
     finite = bool(torch.isfinite(lufs).all())
     prof = _device_profile(sig.loudness, ms, "biquad_kernel", 2)
     _print_profile("loudness", prof, ms)
     phase("loudness", counts == want and counts_norm == want_norm and diff <= 1e-3
-          and off <= 0.1 and same and finite,
+          and off <= 0.1 and same and finite and np_on_card,
           f"{tuple(sig.audio_data.shape)} at {DSP_DST} Hz: LUFS {float(lufs.min()):.3f} .. "
           f"{float(lufs.max()):.3f}; launches per loudness() {counts} == {want}, normalize + "
           f"loudness {counts_norm} == {want_norm}; first 2 clips card vs cpu |dLUFS| "
           f"{diff:.2e} (<= 1e-3); after normalize(-24) max |LUFS + 24| {off:.2e} (<= 0.1); "
-          f"equal to the plain loops' LUFS: {same}; {ms:.2f} ms (CUDA events), plain versions "
+          f"numpy input on the card, kernel launched: {np_on_card} ({counts_np['biquad_df2t']} "
+          f"biquad launches); equal to the plain loops' and the numpy call's LUFS: {same}; "
+          f"{ms:.2f} ms (CUDA events), plain versions "
           f"{plain_ms:.1f} ms; peak {peak:.3f} GB on {card}")
-    return {"counts": counts, "counts_normalize": counts_norm, "ms": ms, "plain_ms": plain_ms,
+    return {"counts": counts, "counts_normalize": counts_norm, "counts_numpy": counts_np,
+            "ms": ms, "plain_ms": plain_ms,
             "lufs_cpu_diff": diff, "normalize_off": off, "peak_gb": peak, "profile": prof}
 
 
@@ -1074,15 +1145,6 @@ def phase_resunit_dense(model, gen: torch.Generator) -> dict:
     cases = [(u, t, 1) for u, t in zip(units, lengths)]
     cases += [(narrow, 1037, 2), (by_shape[(96, 9)], 1037, 2), (by_shape[(768, 9)], 6896, 4)]
     res = _hold_resunits("resunit dense", cases, len(units), gen)
-    per_c: dict[int, list[float]] = {}
-    for row in res["rows"][: len(units)]:
-        ms = per_c.setdefault(row["C"], [0.0, 0.0])
-        ms[0] += row["ms"]
-        ms[1] += row["plain_ms"]
-    res["per_c"] = {c: {"ms": k, "plain_ms": p, "slower": k > p} for c, (k, p) in per_c.items()}
-    for c, r in res["per_c"].items():
-        print(f"    resunit dense C={c}, its 3 units: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms" + ("  SLOWER THAN PLAIN" if r["slower"] else ""))
     _, w_dil, _, _, w_pw, _ = _unit_args(by_shape[(768, 9)])
     res["split_ms_c768"] = time_ms(lambda: pack_dense_weights(w_dil, w_pw), 20)
     slower = [c for c, r in res["per_c"].items() if r["slower"]]
@@ -1267,15 +1329,15 @@ def phase_dac_serve(model, card: str) -> dict:
         times[mode].append(ms)
         peak[mode] = gb
     kernel_ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    prof = _device_profile(lambda: model.forward(batch), kernel_ms, "resunit_dense_gemm",
+    prof = _device_profile(lambda: model.forward(batch), kernel_ms, "resunit_gemm",
                            2 * n_units)  # two GEMM launches a unit (and snake_rows)
     _print_profile("dac kernel", prof, kernel_ms)
     if prof["complete"]:
         prof["dense_split_ms"] = {
             part: sum(ms for k, ms, _ in prof["top"] if name in k and tag in k)
             for part, name, tag in (("snake", "snake_rows", ""),
-                                    ("conv", "resunit_dense_gemm", "true>"),
-                                    ("pointwise", "resunit_dense_gemm", "false>"))}
+                                    ("conv", "resunit_gemm", "true>"),
+                                    ("pointwise", "resunit_gemm", "false>"))}
         split = prof["dense_split_ms"]
         print(f"    profile dac kernel: dense units' snake(x) launches {split['snake']:.2f} ms, "
               f"conv launches {split['conv']:.2f} ms, pointwise launches "
@@ -1321,7 +1383,7 @@ def _entry(name: str, source: str, replaces: str, launches: dict, res: dict) -> 
             "launches": launches[name], "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"], "shapes": res["rows"],
-            **({"bound_f32_ms": res["bound_f32_ms"]} if "bound_f32_ms" in res else {})}
+            **{k: res[k] for k in ("bound_f32_ms", "floor_ms") if k in res}}
 
 
 def main() -> int:
@@ -1373,7 +1435,7 @@ def main() -> int:
     kernels_line = {"kernels": [
         _entry("codebook_argmin", "codebook.cu", "codebook.py:46", launches, cb),
         _entry("fused_residual_unit", "resunit.cu", "resunit.py:154", launches, ru),
-        _entry("fused_residual_unit_dense", "resunit_dense.cu",
+        _entry("fused_residual_unit_dense", "resunit.cu",
                "resunit.py:154 (depthwise=False)", launches, ru_dense),
         _entry("lstm_scan", "lstm.cu", "lstm.py:103", launches, lstm),
         _entry("envelope_follow", "envelope.cu", "envelope.py:75", launches, env),

@@ -12,9 +12,18 @@ decoder → trim), the Encodec round trip (chunking, SEANet with SLSTM,
 RVQ, overlap-add) with the raw .ecdc container, the AudioTools DSP
 library (``dsp``: resampling, STFT and mel, BS.1770 loudness, effects,
 AudioSignal), and the DAC round trip with the .dac container.
+
+Importing the package turns TF32 off for cuDNN and cuBLAS (both flags of
+``ops.precision``): one TF32 pass keeps about three digits and flips
+near-tie RVQ codes, where the JAX package's f32 path runs its contractions
+at ``Precision.HIGH``.
 """
 
-from neuralcodecs_tpu_torch.dsp import AudioSignal
+from neuralcodecs_tpu_torch.ops.precision import disable_tf32
+
+disable_tf32()
+
+from neuralcodecs_tpu_torch.dsp import AudioSignal  # noqa: E402
 from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
 from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig
 from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig

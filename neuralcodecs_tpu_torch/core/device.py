@@ -13,3 +13,12 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def as_audio(audio) -> torch.Tensor:
+    """``audio`` as an f32 tensor: a tensor keeps its device, anything else
+    (a numpy array, a list) goes to ``resolve_device(None)``, as
+    ``jnp.asarray`` puts it on the default accelerator in the JAX package."""
+    if isinstance(audio, torch.Tensor):
+        return audio.to(torch.float32)
+    return torch.as_tensor(audio, dtype=torch.float32, device=resolve_device())

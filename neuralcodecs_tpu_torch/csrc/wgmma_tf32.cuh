@@ -2,8 +2,8 @@
 // registers (four .b32 TF32 values a thread, the RS form), B from shared
 // memory by a matrix descriptor (K-major), D = A . B + (scale_d ? D : 0)
 // in f32. One function
-// per width N the dense residual-unit kernels use; d holds the thread's
-// N / 2 accumulators in wgmma's fragment order (resunit_dense.cu's header
+// per width N the residual-unit GEMM uses; d holds the thread's
+// N / 2 accumulators in wgmma's fragment order (resunit.cu's header
 // gives it). The operand lists are spelled out because inline PTX takes
 // no register arrays.
 

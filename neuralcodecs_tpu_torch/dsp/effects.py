@@ -15,13 +15,14 @@ import math
 import numpy as np
 import torch
 
+from neuralcodecs_tpu_torch.core.device import as_audio
 from neuralcodecs_tpu_torch.dsp.filters import (
     allpass_filter, comb_filter, fir_filter, one_pole_follower, variable_delay_line)
 from neuralcodecs_tpu_torch.dsp.resample import linear_resample
 
 
 def _as_bct(audio) -> tuple[torch.Tensor, tuple[int, ...]]:
-    a = torch.as_tensor(audio, dtype=torch.float32)
+    a = as_audio(audio)
     orig = tuple(a.shape)
     if a.dim() == 1:
         a = a[None, None, :]
@@ -189,7 +190,7 @@ def apply_pitch_shift(audio, sample_rate: int, semitones: float = 0.0) -> torch.
     """Pitch shift by resampling: shift the rate, then resample back to the
     original length."""
     if abs(semitones) < 1e-9:
-        return torch.as_tensor(audio, dtype=torch.float32)
+        return as_audio(audio)
     a, orig = _as_bct(audio)
     shifted_rate = max(int(sample_rate / (2.0 ** (semitones / 12.0))), 1)
     out = linear_resample(linear_resample(a, sample_rate, shifted_rate), shifted_rate,

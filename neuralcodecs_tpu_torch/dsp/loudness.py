@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from neuralcodecs_tpu_torch.core.device import as_audio
 from neuralcodecs_tpu_torch.dsp.constants import on_device
 from neuralcodecs_tpu_torch.dsp.filters import biquad
 
@@ -32,7 +33,7 @@ def _k_weights(channels: int) -> np.ndarray:
 
 
 def _as_bct(audio) -> torch.Tensor:
-    a = torch.as_tensor(audio, dtype=torch.float32)
+    a = as_audio(audio)
     if a.dim() == 1:
         return a[None, None, :]
     return a[None] if a.dim() == 2 else a
@@ -76,7 +77,7 @@ def integrated_loudness(audio, sample_rate: int = 44100,
 
 def normalize_loudness(audio, sample_rate: int, target_db: float = -24.0) -> torch.Tensor:
     """Gain each batch item of the audio to ``target_db`` LUFS."""
-    a = torch.as_tensor(audio, dtype=torch.float32)
+    a = as_audio(audio)
     gain = torch.exp((target_db - integrated_loudness(a, sample_rate)) * GAIN_FACTOR)
     if a.dim() == 1:
         return a * gain[0]

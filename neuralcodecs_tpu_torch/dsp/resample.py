@@ -17,13 +17,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuralcodecs_tpu_torch.core.device import as_audio
 from neuralcodecs_tpu_torch.dsp.constants import on_device
 
 
 def linear_resample(audio: torch.Tensor, src_rate: int, dst_rate: int) -> torch.Tensor:
     """Linear-interpolation resampling over the last axis; the tail holds
     the last sample."""
-    audio = torch.as_tensor(audio, dtype=torch.float32)
+    audio = as_audio(audio)
     if src_rate == dst_rate:
         return audio
     n_in = audio.shape[-1]
@@ -84,7 +85,7 @@ def resample_poly(audio: torch.Tensor, src_rate: int, dst_rate: int,
     """Polyphase resampling of [..., T]: the JAX package's zero-stuffed
     strided conv, computed as one conv of the phase filters over the
     unstuffed signal (no buffer of zeros; about 49 taps an output)."""
-    audio = torch.as_tensor(audio, dtype=torch.float32)
+    audio = as_audio(audio)
     if src_rate == dst_rate:
         return audio
     g = math.gcd(src_rate, dst_rate)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuralcodecs_tpu_torch.core.device import as_audio
 from neuralcodecs_tpu_torch.dsp.constants import on_device
 
 
@@ -62,7 +63,7 @@ def stft(audio: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
          window_type: str = "hann", center: bool = True,
          pad_mode: str = "reflect") -> torch.Tensor:
     """[..., T] -> complex [..., n_fft // 2 + 1, frames]."""
-    audio = torch.as_tensor(audio, dtype=torch.float32)
+    audio = as_audio(audio)
     lead, t = audio.shape[:-1], audio.shape[-1]
     spec = torch.stft(audio.reshape(-1, t), n_fft, hop_length=hop_length, win_length=n_fft,
                       window=_window(window_type, n_fft, audio.device), center=center,

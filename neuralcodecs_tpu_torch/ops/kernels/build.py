@@ -39,8 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, codebook, out, T, N, D, device, stream
     "nc_codebook_argmin_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # x, alpha1, w_dil, b_dil, alpha2, w_pw, b_pw, out, B, C, T, dilation, device, stream
-    "nc_resunit_depthwise_f32": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
+    # x, alpha1, w_dil, b_dil, alpha2, w1_big, w1_small, b_pw, y (scratch), out, B, C, T,
+    # dilation, device, stream; W1 split and re-laid by resunit.pack_pointwise_weights
+    "nc_resunit_depthwise_f32": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     # x, alpha1, wd_big, wd_small, b_dil, alpha2, w1_big, w1_small, b_pw, y (scratch),
     # out, B, C, T, dilation, device, stream; the weights split and re-laid by
     # resunit.pack_dense_weights

@@ -4,7 +4,10 @@ Replaces neuralcodecs_tpu/ops/pallas/lstm.py:lstm_scan_pallas. One LSTM
 layer over a precomputed input projection, gate order i, f, g, o, with
 (h, c) carried. On the H100 the recurrence is bound by the serial latency
 of a step, not by bytes or flops: the plain loop pays about nine launches
-per step, the kernel one grid barrier (see the header of csrc/lstm.cu).
+per step, the kernel one handoff between its blocks through a counter in
+device memory (see the header of csrc/lstm.cu). The kernel takes H up to
+128 x 5 and up to 4 units a block on each SM (H <= 528 on an H100); larger
+H raises at the launch.
 
 ``w_hh`` is taken in torch's layout [4H, H] (``nn.LSTM.weight_hh_l*``, and
 what ``core.weights.from_jax_params`` makes of the JAX package's [H, 4H]),
@@ -87,7 +90,7 @@ lstm_scan.launches = 0
 
 def lstm_scan_plan(b: int, h: int, device: torch.device | str = "cuda") -> tuple[int, int, int]:
     """(U, blocks, BS) of the kernel's launch at batch b, hidden size h on a
-    CUDA device: hidden units per block, blocks of the cooperative grid, and
+    CUDA device: hidden units per block, blocks of the persistent grid, and
     batch rows of h staged per pass (b > BS takes several passes a step).
     Launches nothing."""
     device = torch.device(device)

@@ -1,5 +1,4 @@
-"""Fused residual unit: the CUDA kernels csrc/resunit.cu and csrc/resunit_dense.cu
-and their plain version.
+"""Residual unit: the CUDA kernels of csrc/resunit.cu and their plain version.
 
 Replaces neuralcodecs_tpu/ops/pallas/resunit.py:fused_residual_unit, both
 forms. One ResidualUnit is
@@ -8,20 +7,22 @@ forms. One ResidualUnit is
 
 with a depthwise Wd [C, 1, 7] (SNAC) or a dense Wd [C, C, 7] (DAC). On the
 H100 the C×C products make it bound by operations; the plain chain adds
-five full [B, C, T] round trips through device memory. The depthwise
-kernel keeps every intermediate on chip with f32 FMAs (csrc/resunit.cu).
-The dense form runs on the tensor cores in 3xTF32 (csrc/resunit_dense.cu):
-three launches a unit, snake(x, α1), the dilated conv into a scratch y, then
-the pointwise product with bias and residual.
+five full [B, C, T] round trips through device memory. Both forms run their
+C×C products on the tensor cores in 3xTF32 (csrc/resunit.cu), with y
+through device memory as a scratch [B, C, T]:
+- depthwise, two launches a unit: y = snake(bd + depthwise conv of
+  snake(x, α1), α2) with f32 taps, then out = x + b1 + W1 y;
+- dense, three: snake(x, α1), the dilated conv into y, then the same
+  pointwise launch.
 
 ``fused_residual_unit`` is the wrapper: the plain version for CPU tensors,
-the depthwise or the dense kernel for CUDA tensors by the shape of Wd, or an
-error. ``fused_residual_unit.launches`` counts depthwise launches and
+the depthwise or the dense kernels for CUDA tensors by the shape of Wd, or
+an error. ``fused_residual_unit.launches`` counts depthwise units and
 ``fused_residual_unit_dense.launches`` dense units (one a call, though a
-call makes three launches). The dense kernels read Wd re-laid to
-[7, Cout, Cin] and W1 [Cout, Cin], each split into its TF32 part and the
-rest (``pack_dense_weights``, on every call: its time at C = 768 is in
-PERF.md).
+call makes two or three launches). The kernels read W1 as [Cout, Cin] and
+the dense Wd re-laid to [7, Cout, Cin], each split into its TF32 part and
+the rest (``pack_pointwise_weights``, ``pack_conv_weights``), once for each
+weight tensor and kept on it until it changes.
 """
 
 from __future__ import annotations
@@ -59,16 +60,40 @@ def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, w - big
 
 
-def pack_dense_weights(w_dil: torch.Tensor, w_pw: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The dense kernels' weights: Wd [C, C, 7] re-laid to [7, Cout, Cin]
-    and W1 [C, C, 1] to [Cout, Cin], Cin zero-padded to a multiple of 4 (TMA
-    rows are whole 16-byte units), each split by ``tf32_split``. Returns
-    (wd_big, wd_small, w1_big, w1_small)."""
+def pack_pointwise_weights(w_pw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pointwise launch's weights: W1 [C, C, 1] as [Cout, Cin], Cin
+    zero-padded to a multiple of 4 (TMA rows are whole 16-byte units), split
+    by ``tf32_split``. Returns (w1_big, w1_small)."""
+    c = w_pw.shape[0]
+    return tf32_split(F.pad(w_pw[:, :, 0], (0, -c % 4)).contiguous())
+
+
+def pack_conv_weights(w_dil: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense conv launch's weights: Wd [C, C, 7] re-laid to [7, Cout,
+    Cin], Cin zero-padded to a multiple of 4, split by ``tf32_split``.
+    Returns (wd_big, wd_small)."""
     c = w_dil.shape[0]
-    pad = (0, -c % 4)
-    wd = F.pad(w_dil.permute(2, 0, 1), pad).contiguous()
-    w1 = F.pad(w_pw[:, :, 0], pad).contiguous()
-    return (*tf32_split(wd), *tf32_split(w1))
+    return tf32_split(F.pad(w_dil.permute(2, 0, 1), (0, -c % 4)).contiguous())
+
+
+def pack_dense_weights(w_dil: torch.Tensor, w_pw: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The dense kernels' weights: (wd_big, wd_small, w1_big, w1_small) from
+    ``pack_conv_weights`` and ``pack_pointwise_weights``."""
+    return (*pack_conv_weights(w_dil), *pack_pointwise_weights(w_pw))
+
+
+def _packed(w: torch.Tensor, pack) -> tuple[torch.Tensor, torch.Tensor]:
+    """pack(w), kept on ``w`` itself until w's storage or its in-place
+    version changes (``load_state_dict`` and optimizer steps change the
+    version; a write through ``w.data`` is not seen): a unit's weights stay
+    the same from one forward to the next, and splitting them costs about
+    five small launches a unit."""
+    key = (w.data_ptr(), w._version)
+    cached = getattr(w, "_nc_packed", None)
+    if cached is None or cached[0] != key:
+        cached = (key, pack(w))
+        w._nc_packed = cached
+    return cached[1]
 
 
 def _check_inputs(x: torch.Tensor, args: tuple, *, dense: bool) -> None:
@@ -117,7 +142,10 @@ def fused_residual_unit(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torch.Tens
     if w_dil.dim() == 3 and w_dil.shape[1] != 1:
         return fused_residual_unit_dense(x, *args, dilation=dilation)
     _check_inputs(x, args, dense=False)
-    out = _launch("nc_resunit_depthwise_f32", x, args, dilation)
+    w1_big, w1_small = _packed(w_pw, pack_pointwise_weights)
+    y = torch.empty_like(x)  # the depthwise launch's output, read by the pointwise launch
+    out = _launch("nc_resunit_depthwise_f32", x,
+                  (alpha1, w_dil, b_dil, alpha2, w1_big, w1_small, b_pw, y), dilation)
     fused_residual_unit.launches += 1
     return out
 
@@ -130,7 +158,8 @@ def fused_residual_unit_dense(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torc
     if _on_cpu(x, args):
         return residual_unit_plain(x, *args, dilation=dilation)
     _check_inputs(x, args, dense=True)
-    wd_big, wd_small, w1_big, w1_small = pack_dense_weights(w_dil, w_pw)
+    wd_big, wd_small = _packed(w_dil, pack_conv_weights)
+    w1_big, w1_small = _packed(w_pw, pack_pointwise_weights)
     y = torch.empty_like(x)  # the dilated conv's output, read by the pointwise launch
     out = _launch("nc_resunit_dense_f32", x,
                   (alpha1, wd_big, wd_small, b_dil, alpha2, w1_big, w1_small, b_pw, y),

@@ -340,6 +340,35 @@ def test_effects_keep_input_rank(rng):
     assert tuple(effects.apply_pitch_shift(_t(x), SR, 0.0).shape) == (2, 600)
 
 
+# ------------------------------------------------------------ devices
+
+FREE_FUNCTIONS = {
+    "integrated_loudness": lambda x: loudness.integrated_loudness(x, 16000),
+    "normalize_loudness": lambda x: loudness.normalize_loudness(x, 16000),
+    "linear_resample": lambda x: resample.linear_resample(x, 16000, 24000),
+    "resample_poly": lambda x: resample.resample_poly(x, 16000, 24000),
+    "stft": lambda x: stft.stft(x, n_fft=256, hop_length=64),
+    "apply_compressor": lambda x: effects.apply_compressor(x, 16000),
+    "apply_pitch_shift": lambda x: effects.apply_pitch_shift(x, 16000, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", list(FREE_FUNCTIONS))
+def test_numpy_input_goes_to_the_card(monkeypatch, rng, name):
+    """An array is put on "cuda", as jnp.asarray puts it on the accelerator:
+    without a card that raises instead of running on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FREE_FUNCTIONS[name](_noise(rng, 2, 1, 4000))
+
+
+@pytest.mark.parametrize("name", list(FREE_FUNCTIONS))
+def test_cpu_tensor_stays_on_the_cpu(monkeypatch, rng, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = FREE_FUNCTIONS[name](_t(_noise(rng, 2, 1, 4000)))
+    assert out.device == torch.device("cpu")
+
+
 # ------------------------------------------------------------ AudioSignal
 
 

@@ -412,6 +412,21 @@ def test_disable_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def test_import_turns_tf32_off():
+    """A fresh process: torch's defaults leave cuDNN's TF32 on; importing
+    the port turns both flags off."""
+    code = ("import torch\n"
+            "assert torch.backends.cudnn.allow_tf32\n"
+            "import neuralcodecs_tpu_torch\n"
+            "from neuralcodecs_tpu_torch.ops.precision import tf32_disabled\n"
+            "assert tf32_disabled()\n"
+            "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 def test_port_imports_without_jax():
     code = ("import sys, pkgutil, importlib, neuralcodecs_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'neuralcodecs_tpu_torch.'):\n"

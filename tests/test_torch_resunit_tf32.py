@@ -1,7 +1,8 @@
-"""The arithmetic of the dense residual-unit kernels (csrc/resunit_dense.cu).
+"""The arithmetic of the residual-unit kernels (csrc/resunit.cu).
 
-The kernels run each f32 product of a DAC residual unit on the tensor cores
-as three TF32 passes: a = a_big + a_small with a_big rounded to TF32 (10
+The kernels run the f32 products of a residual unit on the tensor cores as
+three TF32 passes (both products of a dense DAC unit, the pointwise product
+of a depthwise SNAC unit, whose taps stay f32 FMAs): a = a_big + a_small with a_big rounded to TF32 (10
 mantissa bits, to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds),
 and a·b ≈ a_small·b_big + a_big·b_small + a_big·b_big. The tensor cores
 read only the top 19 bits (sign, exponent, 10 mantissa bits) of each
@@ -21,6 +22,7 @@ from neuralcodecs_tpu_torch.core.weights import from_jax_params
 from neuralcodecs_tpu_torch.ops.kernels.resunit import (
     KERNEL,
     pack_dense_weights,
+    pack_pointwise_weights,
     residual_unit_plain,
     tf32_split,
 )
@@ -182,3 +184,84 @@ def test_3pass_unit_matches_pallas_interpret(rng):
             torch.from_numpy(p["b1"]))
     got = _unit_3pass(torch.from_numpy(x), *args, dilation=d).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _depthwise_unit_3pass(x, alpha1, w_dil, b_dil, alpha2, w_pw, b_pw, *, dilation: int):
+    """One depthwise residual unit as its two launches compute it: y =
+    snake(bd + depthwise conv of snake(x, α1), α2) in f32 (the taps stay f32
+    FMAs); out = x + (b1 + W1 y) with the 3-pass product."""
+    c = x.shape[1]
+    h = snake(x, alpha1)
+    y = snake(F.conv1d(h, w_dil, b_dil, padding=(KERNEL - 1) * dilation // 2,
+                       dilation=dilation, groups=c), alpha2)
+    return x + (_conv_3pass(y, w_pw, 1) + b_pw[None, :, None].double()).float()
+
+
+def test_3pass_depthwise_unit_matches_plain_chain_at_full_width(rng):
+    """SNAC's widest depthwise unit (C = 512) at d = 9, T = 256: the f32
+    taps and the 3-pass pointwise product stay within the kernel phase's
+    rtol 1e-4 / atol 1e-5 of the f32 chain."""
+    c, d, t = 512, 9, 256
+    alpha1, _, b_dil, alpha2, w_pw, b_pw = _dense_args(rng, c)
+    w_dil = torch.from_numpy((rng.standard_normal((c, 1, KERNEL)) * KERNEL ** -0.5)
+                             .astype(np.float32))
+    args = (alpha1, w_dil, b_dil, alpha2, w_pw, b_pw)
+    x = torch.from_numpy(rng.standard_normal((1, c, t)).astype(np.float32))
+    want = residual_unit_plain(x, *args, dilation=d)
+    got = _depthwise_unit_3pass(x, *args, dilation=d)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_3pass_depthwise_unit_matches_pallas_interpret(rng):
+    """The depthwise emulation against the JAX package's Pallas kernel
+    (depthwise=True) in interpret mode, at C = 128, d = 3, within the
+    rtol 1e-4 / atol 1e-5 that test_torch_ops.py holds the f32 chain to."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from neuralcodecs_tpu.ops.pallas.resunit import fused_residual_unit as jfused
+
+    t, c, d = 256, 128, 3
+    x = (0.5 * rng.standard_normal((1, c, t))).astype(np.float32)
+    p = {"alpha1": rng.standard_normal(c).astype(np.float32),
+         "alpha2": rng.standard_normal(c).astype(np.float32),
+         "wd": (0.1 * rng.standard_normal((KERNEL, 1, c))).astype(np.float32),
+         "bd": (0.1 * rng.standard_normal(c)).astype(np.float32),
+         "w1": (0.1 * rng.standard_normal((1, c, c))).astype(np.float32),
+         "b1": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfused(np.ascontiguousarray(x.transpose(0, 2, 1)), p["alpha1"],
+                                 p["wd"], p["bd"], p["alpha2"], p["w1"], p["b1"], k=KERNEL,
+                                 dilation=d, depthwise=True)).transpose(0, 2, 1)
+    sd = from_jax_params({"a.alpha": p["alpha1"], "b.alpha": p["alpha2"], "wd": p["wd"],
+                          "w1": p["w1"]})
+    args = (sd["a.alpha"], sd["wd"], torch.from_numpy(p["bd"]), sd["b.alpha"], sd["w1"],
+            torch.from_numpy(p["b1"]))
+    got = _depthwise_unit_3pass(torch.from_numpy(x), *args, dilation=d).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", [48, 10])
+def test_pack_pointwise_weights_maps_back(rng, c):
+    w_pw = torch.from_numpy(rng.standard_normal((c, c, 1)).astype(np.float32))
+    w1_big, w1_small = pack_pointwise_weights(w_pw)
+    cp = -(-c // 4) * 4
+    assert tuple(w1_big.shape) == tuple(w1_small.shape) == (c, cp)
+    assert w1_big.is_contiguous() and w1_small.is_contiguous()
+    assert torch.equal((w1_big + w1_small)[:, :c], w_pw[:, :, 0])
+    assert torch.equal(w1_big[:, c:], torch.zeros(c, cp - c))
+
+
+def test_packed_weights_follow_in_place_changes(rng):
+    """The wrapper keeps a weight's split on the weight until the weight
+    changes in place (load_state_dict, an optimizer step)."""
+    from neuralcodecs_tpu_torch.ops.kernels.resunit import _packed
+
+    w = torch.from_numpy(rng.standard_normal((12, 12, 1)).astype(np.float32))
+    first = _packed(w, pack_pointwise_weights)
+    assert _packed(w, pack_pointwise_weights)[0] is first[0]
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = _packed(w, pack_pointwise_weights)
+    assert again[0] is not first[0]
+    for got, want in zip(again, pack_pointwise_weights(w)):
+        assert torch.equal(got, want)

@@ -1,9 +1,9 @@
-"""Time the dense residual-unit launches with parts of their work removed.
+"""Time the residual-unit launches with parts of their work removed.
 
-    python3 tools/resunit_dense_ablate.py [--out ablate.json]
+    python3 tools/resunit_ablate.py [--out ablate.json]
 
 Needs one CUDA card and nvcc. Builds copies of
-neuralcodecs_tpu_torch/csrc/resunit_dense.cu into neuralcodecs_tpu_torch/_build/ablate/,
+neuralcodecs_tpu_torch/csrc/resunit.cu into neuralcodecs_tpu_torch/_build/ablate/,
 one for each variant, in parallel:
 
 - ``kernel``: the source as it is;
@@ -13,12 +13,15 @@ one for each variant, in parallel:
 - ``no_weights``: the weight-slab TMA loads taken out (the products read
   whatever the ring holds): the time without the weights' traffic.
 
-and times each launch of one unit (snake_rows, the conv GEMM, the pointwise
-GEMM) with torch.profiler at a few DAC-44k unit shapes. The outputs of the
-ablated variants are wrong by design; the script prints the kernel
-variant's max abs error against the plain chain. Prints one line per
-(shape, variant) with each launch's ms and its rate in TFLOP/s (3xTF32
-flops, three times the f32 products).
+and times each launch of one unit with torch.profiler: of the dense form
+(snake_rows, the conv GEMM, the pointwise GEMM) at a few DAC-44k unit
+shapes, and of the depthwise form (depthwise_rows, the pointwise GEMM) at
+SNAC-24k unit shapes of a 10 s stream. The outputs of the ablated variants
+are wrong by design; the script prints the kernel variant's max abs error
+against the plain chain. Prints one line per (shape, variant) with each
+launch's ms and the pointwise GEMM's rate in TFLOP/s (3xTF32 flops, three
+times the f32 products) and, for the depthwise form, the bytes rate of
+each launch (x in and y out; y and x in and out out).
 """
 
 from __future__ import annotations
@@ -37,11 +40,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from neuralcodecs_tpu_torch.ops.kernels import build  # noqa: E402
 from neuralcodecs_tpu_torch.ops.kernels.resunit import (  # noqa: E402
     pack_dense_weights,
+    pack_pointwise_weights,
     residual_unit_plain,
 )
-from neuralcodecs_tpu_torch.ops.precision import disable_tf32  # noqa: E402
 
-SOURCE = build.CSRC_DIR / "resunit_dense.cu"
+SOURCE = build.CSRC_DIR / "resunit.cu"
 OUT_DIR = build.BUILD_DIR / "ablate"
 MMAS = ["Mma::mma(part, small[f], d_big + 2 * st, st > 0);",
         "Mma::mma(part, big[f], d_small + 2 * st, 1);",
@@ -57,6 +60,10 @@ VARIANTS = {
 # (C, dilation, T, B): DAC-44k units of a 10 s stream, and the server's batch
 SHAPES = [(768, 9, 6896, 1), (768, 9, 6896, 4), (384, 1, 55168, 1), (192, 1, 220672, 1),
           (96, 9, 441344, 1)]
+# (C, dilation, T, B): SNAC-24k depthwise units of a 10 s stream, each C once
+DEPTHWISE_SHAPES = [(48, 9, 241664, 1), (96, 9, 120832, 1), (192, 9, 30208, 1),
+                    (384, 9, 3776, 1), (512, 9, 3776, 1), (256, 9, 30208, 1),
+                    (128, 9, 120832, 1), (64, 9, 241664, 1)]
 
 
 def build_variants() -> dict:
@@ -80,8 +87,9 @@ def build_variants() -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         lib = ctypes.CDLL(str(OUT_DIR / f"{name}.so"))
-        lib.nc_resunit_dense_f32.argtypes = build._SIGNATURES["nc_resunit_dense_f32"]
-        lib.nc_resunit_dense_f32.restype = ctypes.c_int
+        for entry in ("nc_resunit_dense_f32", "nc_resunit_depthwise_f32"):
+            getattr(lib, entry).argtypes = build._SIGNATURES[entry]
+            getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -91,11 +99,10 @@ def main() -> int:
     parser.add_argument("--out", help="write the rows here (JSON)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
-        print("resunit_dense_ablate: no CUDA device available", file=sys.stderr)
+        print("resunit_ablate: no CUDA device available", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    disable_tf32()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
@@ -134,14 +141,57 @@ def main() -> int:
                 return sum(e.self_device_time_total for e in events
                            if all(k in e.key for k in keys)) / 5e3
             row = {"C": c, "dilation": d, "T": t, "B": b, "variant": name,
-                   "snake_ms": ms("snake_rows"), "conv_ms": ms("resunit_dense_gemm", "true>"),
-                   "pointwise_ms": ms("resunit_dense_gemm", "false>"), "max_abs_err": err}
+                   "snake_ms": ms("snake_rows"), "conv_ms": ms("resunit_gemm", "true>"),
+                   "pointwise_ms": ms("resunit_gemm", "false>"), "max_abs_err": err}
             flops = 2.0 * t * b * c * c * 3
             rows.append(row)
             print(f"C={c} d={d} T={t} B={b} {name:10s}: snake {row['snake_ms']:.3f} ms, conv "
                   f"{row['conv_ms']:.3f} ms ({7 * flops / row['conv_ms'] / 1e9:.0f} TFLOP/s), "
                   f"pointwise {row['pointwise_ms']:.3f} ms "
                   f"({flops / row['pointwise_ms'] / 1e9:.0f} TFLOP/s)"
+                  + (f", max|err| {err:.2e}" if err is not None else ""), flush=True)
+    for c, d, t, b in DEPTHWISE_SHAPES:
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=gen, device="cuda")).contiguous()
+        a1, a2 = 1 + rand(1, c, 1, scale=0.3), 1 + rand(1, c, 1, scale=0.3)
+        wd, bd = rand(c, 1, 7, scale=7 ** -0.5), rand(c, scale=0.1)
+        w1, b1 = rand(c, c, 1, scale=c ** -0.5), rand(c, scale=0.1)
+        x = rand(b, c, t)
+        w1_big, w1_small = pack_pointwise_weights(w1)
+        y, out = torch.empty_like(x), torch.empty_like(x)
+        want = residual_unit_plain(x, a1, wd, bd, a2, w1, b1, dilation=d)
+        for name, lib in libs.items():
+            def run():
+                rc = lib.nc_resunit_depthwise_f32(
+                    x.data_ptr(), a1.data_ptr(), wd.data_ptr(), bd.data_ptr(), a2.data_ptr(),
+                    w1_big.data_ptr(), w1_small.data_ptr(), b1.data_ptr(), y.data_ptr(),
+                    out.data_ptr(), b, c, t, d, torch.cuda.current_device(),
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+            run()
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max()) if name == "kernel" else None
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    run()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+
+            def ms(*keys):
+                return sum(e.self_device_time_total for e in events
+                           if all(k in e.key for k in keys)) / 5e3
+            row = {"C": c, "dilation": d, "T": t, "B": b, "variant": name, "form": "depthwise",
+                   "depthwise_ms": ms("depthwise_rows"),
+                   "pointwise_ms": ms("resunit_gemm", "false>"), "max_abs_err": err}
+            rows.append(row)
+            plane = 4.0 * b * c * t  # bytes of one [B, C, T] tensor
+            flops = 2.0 * t * b * c * c * 3
+            print(f"depthwise C={c} d={d} T={t} B={b} {name:10s}: depthwise "
+                  f"{row['depthwise_ms']:.3f} ms ({2 * plane / row['depthwise_ms'] / 1e6:.0f} GB/s), "
+                  f"pointwise {row['pointwise_ms']:.3f} ms "
+                  f"({3 * plane / row['pointwise_ms'] / 1e6:.0f} GB/s, "
+                  f"{flops / row['pointwise_ms'] / 1e9:.0f} TFLOP/s)"
                   + (f", max|err| {err:.2e}" if err is not None else ""), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
