@@ -5,8 +5,12 @@ Every function takes [..., T] and works on the rows of its [N, T] flattening.
 ``biquad`` and ``one_pole_follower`` are the two recurrences with a TPU
 kernel in the JAX package; here they go to the CUDA kernels of
 ``ops/kernels`` (``biquad_df2t``, ``envelope_follow``), which run their plain
-loops on CPU tensors. ``comb_filter``, ``allpass_filter`` and
-``variable_delay_line`` had no kernel in JAX and are plain PyTorch loops
+loops on CPU tensors. ``biquad_cascade`` runs 1 or 2 biquads back to back in
+one kernel call (the K-weighting's two). On the card the envelope follower
+is bit-exact against its loop; the biquad kernel is a chunked scan, as
+accurate as its loop against the exact filter but not bit-equal to it past
+one chunk (see ops/kernels/biquad.py). ``comb_filter``, ``allpass_filter``
+and ``variable_delay_line`` had no kernel in JAX and are plain PyTorch loops
 over T, with the scan's expressions.
 """
 
@@ -26,7 +30,13 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 def biquad(x: torch.Tensor, b, a) -> torch.Tensor:
     """Direct-form-II-transposed biquad over the last axis; b: 3 numerator
     and a: 3 denominator coefficients, a[0] == 1."""
-    return biquad_df2t(_rows(x), b, a).reshape(x.shape)
+    return biquad_cascade(x, [(b, a)])
+
+
+def biquad_cascade(x: torch.Tensor, sections) -> torch.Tensor:
+    """The biquads ``sections`` = [(b, a), ...] (1 or 2) one after the other
+    over the last axis, in one kernel call."""
+    return biquad_df2t(_rows(x), sections).reshape(x.shape)
 
 
 def fir_filter(x: torch.Tensor, h, padding: int | None = None) -> torch.Tensor:

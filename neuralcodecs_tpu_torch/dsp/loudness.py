@@ -14,7 +14,7 @@ import torch
 
 from neuralcodecs_tpu_torch.core.device import as_audio
 from neuralcodecs_tpu_torch.dsp.constants import on_device
-from neuralcodecs_tpu_torch.dsp.filters import biquad
+from neuralcodecs_tpu_torch.dsp.filters import biquad_cascade
 
 GAIN_FACTOR = 0.11512925464970229  # ln(10) / 20
 
@@ -40,9 +40,9 @@ def _as_bct(audio) -> torch.Tensor:
 
 
 def k_weighting(audio: torch.Tensor) -> torch.Tensor:
-    """The K pre-filter chain (high shelf, then high pass) over [..., T]."""
-    x = biquad(audio, _HIGH_SHELF_B, _HIGH_SHELF_A)
-    return biquad(x, _HIGH_PASS_B, _HIGH_PASS_A)
+    """The K pre-filter chain (high shelf, then high pass) over [..., T], in
+    one kernel call."""
+    return biquad_cascade(audio, [(_HIGH_SHELF_B, _HIGH_SHELF_A), (_HIGH_PASS_B, _HIGH_PASS_A)])
 
 
 def _lufs(power: torch.Tensor) -> torch.Tensor:

@@ -52,8 +52,9 @@ _SIGNATURES = {
     "nc_lstm_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     # x, env, N, T, attack, release, device, stream
     "nc_envelope_f32": [_P, _P, _I, _I, _F, _F, _I, _P],
-    # x, y, N, T, b0, b1, b2, a1, a2, device, stream
-    "nc_biquad_f32": [_P, _P, _I, _I] + [_F] * 5 + [_I, _P],
+    # x, y, e (f64 scratch), s (f32 scratch), N, T, L, S, coefs[5 S] (host f32),
+    # phi[2S x 2S] (host f64), device, stream
+    "nc_biquad_cascade_f32": [_P] * 4 + [_I] * 4 + [_P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,13 @@
 
 Replaces neuralcodecs_tpu/ops/pallas/envelope.py:envelope_pallas, the
 attack/release one-pole follower over |x| at the core of the compressor.
-On the H100 the recurrence is bound by the serial latency of a step: the
-plain loop pays six launches per sample, the kernel a chain of four
-dependent f32 ops (see the header of csrc/envelope.cu). Both round every op
-on its own, so the kernel is bit-exact against the plain version.
+The gain switches on the level, so the recurrence is not linear and stays
+one serial chain a row: on the H100 it is bound by the latency of a step.
+The plain loop pays six launches per sample; the kernel computes both
+candidate levels and selects last, so its chain is four dependent f32 ops
+with the compare beside them, and is fed by TMA (see the header of
+csrc/envelope.cu). Both round every op on its own, so the kernel is
+bit-exact against the plain version.
 
 The gains are rounded to f32 once, as the JAX scan's ``jnp.where`` does with
 its Python floats. The JAX package's dispatch gate and compile probe
@@ -50,6 +53,8 @@ def envelope_follow(x: torch.Tensor, attack_gain: float, release_gain: float) ->
     if x.device.type == "cpu":
         return envelope_follow_plain(x, attack_gain, release_gain)
     check_rows(x, "envelope_follow")
+    if x.data_ptr() % 16:  # the kernel's bulk copies want 16-byte aligned rows
+        x = x.clone()
     lib = load_library()
     n, t = x.shape
     env = torch.empty_like(x)

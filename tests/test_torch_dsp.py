@@ -3,8 +3,11 @@
 The same numpy inputs, made from a seed, go through each JAX function and
 its counterpart in ``neuralcodecs_tpu_torch.dsp``. On the CPU the envelope
 and biquad wrappers run their plain loops, which are held against the JAX
-scans and the interpreted Pallas kernels; the CUDA kernels themselves are
-held bit-exact against those plain loops on the GPU by ``chip_smoke.py``.
+scans and the interpreted Pallas kernels. On the GPU ``chip_smoke.py``
+holds the CUDA kernels against those plain loops: the envelope kernel bit
+for bit; the biquad cascade, a chunked scan, bit for bit where T fits one
+chunk and otherwise against the exact filter in f64 (its arithmetic is
+emulated on the CPU in ``tests/test_torch_biquad_chunked.py``).
 
 Tolerances:
 - the numpy constants (windows, filterbanks, filter prototypes, BS.1770

@@ -310,7 +310,7 @@ def test_wrappers_run_plain_on_cpu_without_counting(rng):
     torch.testing.assert_close(envelope_follow(xs, 0.2, 0.01),
                                envelope_follow_plain(xs, 0.2, 0.01), rtol=0, atol=0)
     b, a = (0.2, 0.3, 0.1), (1.0, -0.5, 0.25)
-    torch.testing.assert_close(biquad_df2t(xs, b, a), biquad_df2t_plain(xs, b, a),
+    torch.testing.assert_close(biquad_df2t(xs, [(b, a)]), biquad_df2t_plain(xs, b, a),
                                rtol=0, atol=0)
     assert kernels.launch_counts() == _NO_LAUNCHES
 
@@ -336,7 +336,7 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda(rng):
     with pytest.raises(ValueError):
         envelope_follow(torch.empty(2, 100, device="meta"), 0.2, 0.01)
     with pytest.raises(ValueError):
-        biquad_df2t(torch.empty(2, 100, device="meta"), (1.0, 0.0, 0.0), (1.0, 0.0, 0.0))
+        biquad_df2t(torch.empty(2, 100, device="meta"), [((1.0, 0.0, 0.0), (1.0, 0.0, 0.0))])
     assert kernels.launch_counts() == _NO_LAUNCHES
 
 
