@@ -4,8 +4,11 @@
 
 Builds the port's CUDA kernels from neuralcodecs_tpu_torch/csrc and holds
 each against its plain PyTorch version at the shapes its round trips give
-it. SNAC-24k: holds the depthwise residual-unit kernels (a depthwise launch
-and a tensor-core launch a unit, 3xTF32) against the plain chain at every
+it; the codebook kernel also beside the kernel it replaced
+(tools/codebook_baseline.cu) and by its device time, at every served shape and
+with ties across its codebook slices. SNAC-24k: holds the depthwise
+residual-unit kernels (a depthwise launch and a tensor-core launch a unit,
+3xTF32) against the plain chain at every
 unit shape of a 10 s stream, checks the port against the frozen SNAC golden
 and against itself on the CPU, then serves a few requests through full-width SNAC-24k
 (seeded random weights). Encodec: reproduces the frozen raw .ecdc stream,
@@ -153,11 +156,12 @@ def phase_device() -> dict:
 
 def phase_build() -> dict:
     """Build the kernels; print ptxas's register and spill report (and any
-    wgmma warning) and, for the residual-unit GEMM kernels, the count of
-    tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in their SASS.
-    Fails unless every instantiation of the residual unit's GEMM (both
-    forms' pointwise launch, the dense form's conv launch) has HGMMA
-    instructions."""
+    wgmma warning) and, for the residual-unit GEMM kernels and the codebook
+    kernel's tensor-core form, the count of tensor-core instructions (HGMMA:
+    wgmma, HMMA: mma.sync) in their SASS. Fails unless every instantiation
+    of the residual unit's GEMM (both forms' pointwise launch, the dense
+    form's conv launch) and of the codebook's D = 32 / 64 / 128 form has
+    HGMMA instructions."""
     from neuralcodecs_tpu_torch.ops.kernels import build
 
     t0 = time.time()
@@ -169,14 +173,17 @@ def phase_build() -> dict:
     for ln in report:
         print(f"    ptxas: {ln}")
     sass = build.sass_counts("resunit_gemm")
-    for name, counts in sass.items():
+    cb_sass = build.sass_counts("argmin_wgmma")
+    for name, counts in {**sass, **cb_sass}.items():
         print(f"    sass: {name}: {counts}")
     on_tensor_cores = bool(sass) and all(c["HGMMA"] > 0 for c in sass.values())
-    phase("build", on_tensor_cores,
+    cb_on_tensor_cores = bool(cb_sass) and all(c["HGMMA"] > 0 for c in cb_sass.values())
+    phase("build", on_tensor_cores and cb_on_tensor_cores,
           f"{[s.name for s in build.sources()]} -> {build.library_path().name} in "
           f"{seconds:.1f} s; HGMMA in each of the {len(sass)} residual-unit GEMM kernels: "
-          f"{on_tensor_cores}")
-    return {"seconds": seconds, "ptxas": report, "sass": sass}
+          f"{on_tensor_cores}, in each of the {len(cb_sass)} codebook tensor-core kernels: "
+          f"{cb_on_tensor_cores}")
+    return {"seconds": seconds, "ptxas": report, "sass": {**sass, **cb_sass}}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -203,58 +210,109 @@ def _compare_codes(flat, cb, got, want) -> tuple[int, float]:
     return int(diff.numel()), float(gap.max())
 
 
-def phase_codebook(gen: torch.Generator) -> dict:
-    from neuralcodecs_tpu_torch.ops.kernels.codebook import (
-        codebook_argmin, codebook_argmin_plain)
+# (N, D, T) of the served 4 x 10 s batches: SNAC-24k's three stages,
+# DAC-44k's and Encodec-24k's; kernel 1 should beat the kernel it replaced
+# and its plain version at each
+CODEBOOK_SERVED = {(4096, 8, 472), (4096, 8, 944), (4096, 8, 1888), (1024, 8, 3448),
+                   (1024, 128, 3000)}
+
+
+def _tie_case(gen: torch.Generator, n: int, d: int, rows: int):
+    """16 entries duplicated at the end of the codebook (the last slice; the
+    first copies lie in the first), latents equal to the first copies, then
+    ``rows`` random latents; l2-normalised at D <= 16, as the lookups give
+    them."""
     from neuralcodecs_tpu_torch.ops.vq import l2_normalize
 
-    dev = torch.device(DEVICE)
-    # (N, D, T, normalized): SNAC 4096x8 at one 10 s stream's stage lengths
-    # (118/236/472) and at batch 4 (1888), DAC 1024x8, and Encodec 1024x128
-    # at the rows a stage gets on its paths: 24k 1 s (75), 48k 2.5 s tail
-    # (78), one 48k chunk (150), the 48k two-chunk batch (300), 24k 3 s
-    # padded to batch 4 (900) and 24k batch 4 x 10 s (3000)
-    cases = [(4096, 8, t, True) for t in (118, 236, 472, 1501, 1888)]
-    cases += [(1024, 8, 862, True)]
-    cases += [(1024, 128, t, False) for t in (75, 78, 150, 300, 900, 3000)]
-    rows, near, worst, err = [], 0, 0.0, 0.0
+    base = torch.randn(n - 16, d, generator=gen, device=DEVICE)
+    extra = torch.randn(rows, d, generator=gen, device=DEVICE)
+    if d <= 16:
+        base, extra = l2_normalize(base), l2_normalize(extra)
+    return torch.cat([base[:16], extra]).contiguous(), torch.cat([base, base[:16]]).contiguous()
+
+
+def phase_codebook(gen: torch.Generator) -> dict:
+    """Kernel 1 against its plain version at every shape its paths give it:
+    SNAC 4096 x 8 at one 10 s stream's stage rows (118/236/472), 1501 and
+    the served batch's (472/944/1888); DAC 1024 x 8 at one stream (862) and
+    the served batch (3448); Encodec 1024 x 128 at 24k 1 s (75), the 48k
+    tail (78), one 48k chunk (150), the 48k two-chunk batch (300), 24k 3 s
+    padded to batch 4 (900) and the served batch (3000); then a tie case at
+    D = 8 and one at D = 128, each with its duplicated entries in different
+    slices. Codes may differ only at near-ties (_compare_codes), and every
+    tie must go to the lowest index. Each shape is timed through the wrapper
+    (CUDA events over 10 calls, ``ms``), through the kernel's C entry
+    (``kernel_ms``) and by its device time (torch.profiler), beside the
+    kernel it replaced (tools/codebook_baseline.cu, built here, through its C
+    entry and by device time) and the plain version, with its bound at
+    the peak of the arithmetic it runs (3xTF32 on the tensor cores for
+    D > 16, f32 FMAs otherwise). The kernels line's ms, plain_ms and bound
+    are one SNAC stream's three stages, as before; each shape's are in
+    ``rows``."""
+    from neuralcodecs_tpu_torch.ops.kernels import build
+    from neuralcodecs_tpu_torch.ops.kernels.codebook import (
+        codebook_argmin, codebook_argmin_plain)
+
+    ablate = _tool("codebook_ablate")
+    baseline, lib = ablate.build_baseline(), build.load_library()
+    cases = [(4096, 8, t) for t in (118, 236, 472, 944, 1501, 1888)]
+    cases += [(1024, 8, t) for t in (862, 3448)]
+    cases += [(1024, 128, t) for t in (75, 78, 150, 300, 900, 3000)]
+    rows, near, worst, slower = [], 0, 0.0, []
     stream_ms = stream_plain_ms = stream_flops = stream_bytes = 0.0
-    for n, d, t, norm in cases:
-        flat = torch.randn(t, d, generator=gen, device=dev)
-        cb = torch.randn(n, d, generator=gen, device=dev)
-        if norm:
-            flat, cb = l2_normalize(flat).contiguous(), l2_normalize(cb).contiguous()
+    for n, d, t in cases:
+        flat, cb = ablate.inputs(gen, n, d, t)
         got = codebook_argmin(flat, cb)
         want = codebook_argmin_plain(flat, cb)
         torch.cuda.synchronize()
         k, gap = _compare_codes(flat, cb, got, want)
-        near, worst, err = near + k, max(worst, gap), max(err, gap)
+        near, worst = near + k, max(worst, gap)
         ms = time_ms(lambda: codebook_argmin(flat, cb))
+        device_ms = ablate.device_ms(lambda: codebook_argmin(flat, cb))
+        kernel_ms = time_ms(ablate.runner(lib, flat, cb, torch.empty_like(got)))
+        run_base = ablate.runner(baseline, flat, cb, torch.empty_like(got))
+        base_ms, base_device_ms = time_ms(run_base), ablate.device_ms(run_base)
         plain_ms = time_ms(lambda: codebook_argmin_plain(flat, cb))
+        flops, nbytes = 2.0 * t * n * d + 2.0 * n * d, 4.0 * (t * d + n * d + t)  # x.e, |e|^2
+        b = bound(3 * flops, nbytes, TF32_FLOPS) if d > 16 else bound(flops, nbytes)
+        served = (n, d, t) in CODEBOOK_SERVED
+        # against the earlier kernel through the same C entry and by device
+        # time, against plain through the wrapper
+        faster = device_ms < base_device_ms and kernel_ms < base_ms and ms < plain_ms
+        if served and not faster:
+            slower.append((n, d, t))
         if n == 4096 and t in (118, 236, 472):
             stream_ms += ms
             stream_plain_ms += plain_ms
-            stream_flops += 2.0 * t * n * d + 2.0 * n * d  # x·e and ‖e‖²
-            stream_bytes += 4.0 * (t * d + n * d + t)
-        rows.append({"N": n, "D": d, "T": t, "ms": ms, "plain_ms": plain_ms, "near_ties": k})
-        print(f"    codebook N={n} D={d} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"near-tie rows {k}")
+            stream_flops += flops
+            stream_bytes += nbytes
+        rows.append({"N": n, "D": d, "T": t, "served": served, "ms": ms, "kernel_ms": kernel_ms,
+                     "device_ms": device_ms, "baseline_ms": base_ms,
+                     "baseline_device_ms": base_device_ms, "plain_ms": plain_ms, "near_ties": k,
+                     **b})
+        print(f"    codebook N={n} D={d} T={t}: kernel {ms:.4f} ms (C entry {kernel_ms:.4f}, "
+              f"device {device_ms:.4f}), "
+              f"baseline {base_ms:.4f} ms (device {base_device_ms:.4f}), plain {plain_ms:.4f} "
+              f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{'3xTF32' if d > 16 else 'f32'}); near-tie rows {k}"
+              + ("" if not served else "; served shape, faster than the baseline and plain: "
+                 + ("yes" if faster else "NO")))
 
-    # injected ties: 16 duplicated entries, latents equal to the first copies
-    base = l2_normalize(torch.randn(4080, 8, generator=gen, device=dev))
-    cb = torch.cat([base, base[:16]]).contiguous()
-    flat = torch.cat([base[:16], l2_normalize(torch.randn(317, 8, generator=gen, device=dev))])
-    flat = flat.contiguous()
-    got = codebook_argmin(flat, cb)
-    want = codebook_argmin_plain(flat, cb)
-    torch.cuda.synchronize()
-    lowest = bool((got[:16].long() == torch.arange(16, device=dev)).all())
-    k, gap = _compare_codes(flat, cb, got, want)
-    near, err = near + k, max(err, gap)
-    phase("codebook kernel vs plain", lowest,
-          f"{len(cases)} shapes + tie case equal (near-tie rows allowed: {near}, "
-          f"max score gap {worst:.2e}); ties -> lowest index: {lowest}")
-    return {"rows": rows, "near_tie_rows": near, "max_abs_err": err,
+    ties = []
+    for n, d in ((4096, 8), (1024, 128)):
+        flat, cb = _tie_case(gen, n, d, 301)
+        got = codebook_argmin(flat, cb)
+        want = codebook_argmin_plain(flat, cb)
+        torch.cuda.synchronize()
+        ties.append(bool((got[:16].long() == torch.arange(16, device=DEVICE)).all()))
+        k, gap = _compare_codes(flat, cb, got, want)
+        near, worst = near + k, max(worst, gap)
+    phase("codebook kernel vs plain", all(ties),
+          f"{len(cases)} shapes + 2 tie cases equal (near-tie rows allowed: {near}, max score "
+          f"gap {worst:.2e}); ties across slices -> lowest index at D = 8, 128: {ties}; served "
+          f"shapes where the kernel is not faster than the baseline and plain: "
+          f"{slower or 'none'}")
+    return {"rows": rows, "near_tie_rows": near, "max_abs_err": worst,
             "ms": stream_ms, "plain_ms": stream_plain_ms, "library_ms": None,
             **bound(stream_flops, stream_bytes)}
 

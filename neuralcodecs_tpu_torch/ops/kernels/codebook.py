@@ -1,9 +1,12 @@
 """Codebook argmin: the CUDA kernel csrc/codebook.cu and its plain version.
 
 Replaces neuralcodecs_tpu/ops/pallas/codebook.py:l2_argmin_pallas. On the
-H100 the search is bound by operations, not bytes (D = 8: one FMA per
-codebook element per row); the kernel keeps each row in registers and the
-staged codebook in shared memory and never writes the [T, N] score matrix
+H100 the search is small: its inputs stay in L2 and its products take a
+few µs. The kernel splits the codebook across a thread-block cluster of up
+to 8 blocks, each staging only its slice (coalesced) and scoring it for a
+tile of rows; the blocks merge their (min, index) pairs through distributed
+shared memory, so the [T, N] score matrix is never written. D in {4, 8,
+12, 16} runs on f32 FMAs, D in {32, 64, 128} on the tensor cores in 3xTF32
 (see the header of csrc/codebook.cu).
 
 ``codebook_argmin`` is the wrapper: the plain version for CPU tensors, the
@@ -16,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from neuralcodecs_tpu_torch.ops.kernels.build import check, device_and_stream, load_library
+
+KERNEL_DIMS = (4, 8, 12, 16, 32, 64, 128)  # the widths D the kernel takes
 
 
 def codebook_argmin_plain(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -38,9 +43,18 @@ def _check_inputs(flat: torch.Tensor, codebook: torch.Tensor) -> None:
                              f"got {tuple(t.shape)}")
     if codebook.device != flat.device:
         raise ValueError("codebook_argmin: flat and codebook on different devices")
-    if flat.shape[1] != codebook.shape[1]:
-        raise ValueError(f"codebook_argmin: D mismatch {flat.shape[1]} != "
-                         f"{codebook.shape[1]}")
+    d = flat.shape[1]
+    if d != codebook.shape[1]:
+        raise ValueError(f"codebook_argmin: D mismatch {d} != {codebook.shape[1]}")
+    if d not in KERNEL_DIMS or codebook.shape[0] == 0:
+        raise ValueError(f"codebook_argmin: the kernel takes N >= 1 and D in {KERNEL_DIMS}, "
+                         f"got N = {codebook.shape[0]}, D = {d}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy where a view left it off the 16 bytes the kernel's
+    vector loads need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def codebook_argmin(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -48,6 +62,7 @@ def codebook_argmin(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if flat.device.type == "cpu" and codebook.device.type == "cpu":
         return codebook_argmin_plain(flat, codebook)
     _check_inputs(flat, codebook)
+    flat, codebook = _aligned(flat), _aligned(codebook)
     lib = load_library()
     t, d = flat.shape
     out = torch.empty(t, dtype=torch.int32, device=flat.device)
