@@ -17,7 +17,13 @@ floor of its per-step handoff, checks full-width Encodec-24k against
 itself on the CPU, serves a few
 requests through it and times its round trip with the kernels and with
 the plain versions, then runs full-width stereo Encodec-48k through its
-chunked forward. DSP (BASELINE.json config 4, 64 clips of 10 s): holds
+chunked forward. Encodec streaming: 4 sessions of 10 s as one batch, in
+pushes of 1, 8 and 75 hops and one session of ragged client chunks, each
+against the full encode (near-ties only) and decode, with the LSTM kernel
+at the pushes' shapes from carried state and the codebook kernel at their
+row counts. The LM-coded .ecdc path: full-width seeded language models
+code Encodec-24k's 4 x 10 s at lm_batch 4 and 1 and Encodec-48k's
+segmented stream through the native range coder, losslessly. DSP (BASELINE.json config 4, 64 clips of 10 s): holds
 the envelope kernel bit-exact against its plain loop beside the floor of
 its step chain, and the biquad-cascade kernel (a chunked scan) against the
 exact filter in f64 and bit-exact where T fits one chunk, runs
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import queue
@@ -963,7 +970,452 @@ def phase_encodec_48k(card: str) -> dict:
     phase("encodec-48k", tuple(out.shape) == (1, 2, n) and finite and counts == want,
           f"forward of 2.5 s stereo -> {tuple(out.shape)}, finite {finite}; launches {counts} "
           f"== {want}; {ms:.1f} ms per forward (CUDA events, mean of 5) on {card}")
-    return {"counts": counts, "ms": ms}
+    return {"counts": counts, "ms": ms}, model
+
+
+# ------------------------------------------------- Encodec streaming phase
+
+
+STREAM_SECONDS = 10
+SHORT_SECONDS = 2  # the one-hop session from the first push
+# the first push of a session: a first push reflects its own samples at
+# each conv's left edge and, where a conv's input is no longer than its
+# context, takes the short-input fallback there; Encodec-24k's last encoder
+# conv and first decoder conv (k = 7, one frame a hop) do so below 7 hops,
+# and the session then differs from the full forward (reported, not held)
+FIRST_HOPS = 8
+# the ragged session's client chunks, in hops, after its first push; cycled
+RAGGED_HOPS = (3, 13, 1, 8, 21, 5, 2, 34)
+
+
+def _pushes(first: int, chunk: int, total: int) -> list[tuple[int, int]]:
+    """(start, end) in hops: a first push, then pushes of ``chunk``."""
+    return [(0, first)] + [(o, min(o + chunk, total)) for o in range(first, total, chunk)]
+
+
+def _ragged_pushes(total: int) -> list[tuple[int, int]]:
+    out, o, i = [(0, FIRST_HOPS)], FIRST_HOPS, 0
+    while o < total:
+        n = min(RAGGED_HOPS[i % len(RAGGED_HOPS)], total - o)
+        out.append((o, o + n))
+        o, i = o + n, i + 1
+    return out
+
+
+def _session_run(model, audio: np.ndarray, pushes, n_q: int, block_hops=None) -> dict:
+    """Paired encode and decode sessions over ``audio`` [B, T] at ``pushes``
+    ((start, end) in hops): the codes [B, n_q, F] and audio [B, 1, T] they
+    emit, and for each push the CUDA-event time of its encode and decode and
+    its wall time, with a synchronise at its end as a server's reply needs."""
+    from neuralcodecs_tpu_torch.models.encodec import StreamingDecoder, StreamingEncoder
+
+    hop = model.encoder.hop_length
+    enc = StreamingEncoder(model, n_q=n_q, block_hops=block_hops)
+    dec = StreamingDecoder(model, block_hops=block_hops)
+    codes, outs, enc_ms, dec_ms, wall_ms = [], [], [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    for a, b in pushes:
+        t0 = time.perf_counter()
+        ev[0].record()
+        c = enc.push(audio[:, a * hop: b * hop])
+        ev[1].record()
+        y = dec.push(c)
+        ev[2].record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        enc_ms.append(ev[0].elapsed_time(ev[1]))
+        dec_ms.append(ev[1].elapsed_time(ev[2]))
+        codes.append(c)
+        outs.append(y)
+    return {"codes": torch.cat(codes, -1), "audio": torch.cat(outs, 1).transpose(1, 2),
+            "enc_ms": enc_ms, "dec_ms": dec_ms, "wall_ms": wall_ms, "pushes": len(pushes)}
+
+
+def _stream_code_gaps(model, x: torch.Tensor, full: torch.Tensor,
+                      got: torch.Tensor) -> tuple[int, float]:
+    """(frames whose streamed codes differ from the full encode's ``full``,
+    largest relative top-2 score gap at the first stage where each differs):
+    the full encode's residual at that stage, scored with plain L2 as
+    ``_encodec_near_ties`` does. Later stages of such a frame follow from
+    the first and are not held."""
+    emb = model.encoder(x).float().transpose(1, 2).reshape(-1, model.config.codebook_dim)
+    n_q = full.shape[1]
+    full_rows = full.permute(0, 2, 1).reshape(-1, n_q).long()
+    got_rows = got.permute(0, 2, 1).reshape(-1, n_q).long()
+    pending = torch.ones(emb.shape[0], dtype=torch.bool, device=emb.device)
+    residual, frames, worst = emb, 0, 0.0
+    for s, layer in enumerate(model.quantizer.layers[:n_q]):
+        embed = layer.codebook.embed
+        diff = pending & (got_rows[:, s] != full_rows[:, s])
+        if bool(diff.any()):
+            scores = _plain_scores(residual[diff], embed)
+            s_got = scores.gather(1, got_rows[diff, s:s + 1])[:, 0]
+            s_full = scores.gather(1, full_rows[diff, s:s + 1])[:, 0]
+            worst = max(worst, float(((s_got - s_full).abs() / (1 + s_full.abs())).max()))
+            frames += int(diff.sum())
+            pending &= ~diff
+        residual = residual - embed[full_rows[:, s]]
+    return frames, worst
+
+
+def _pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values), q))
+
+
+def _stream_kernel3(model, gen: torch.Generator) -> tuple[list, float, dict]:
+    """Kernel 3 at the streaming shapes against its plain loop: T = 1, 8, 75
+    at B = 1 and 4 from non-zero h0 / c0, then 750 chained T = 1 launches
+    against one T = 750 launch. Returns (rows, max error, the T = 1, B = 4
+    row with cuDNN's time on the same step)."""
+    from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan, lstm_scan_plain
+
+    dev = torch.device(DEVICE)
+    w_hh = _slstm(model, "encoder").lstm.weight_hh_l0.detach()
+    h = w_hh.shape[1]
+    rows, err, bad = [], 0.0, []
+    for t in (1, 8, 75):
+        for b in (1, 4):
+            gx = 0.5 * torch.randn(t, b, 4 * h, generator=gen, device=dev)
+            h0 = 0.1 * torch.randn(b, h, generator=gen, device=dev)
+            c0 = 0.1 * torch.randn(b, h, generator=gen, device=dev)
+            got, want = lstm_scan(gx, w_hh, h0, c0), lstm_scan_plain(gx, w_hh, h0, c0)
+            torch.cuda.synchronize()
+            e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            if not all(torch.allclose(g, w, **LSTM_TOL) for g, w in zip(got, want)):
+                bad.append((t, b, e))
+            err = max(err, e)
+            ms = time_ms(lambda: lstm_scan(gx, w_hh, h0, c0), 20)
+            plain_ms = time_ms(lambda: lstm_scan_plain(gx, w_hh, h0, c0), 5, 1)
+            flops = 2.0 * t * b * 4 * h * h + 10.0 * t * b * h
+            nbytes = 4.0 * (t * b * 4 * h + 4 * h * h + 4 * b * h + t * b * h)
+            rows.append({"case": f"stream T={t} B={b} from h0/c0", "T": t, "B": b, "H": h,
+                         "ms": ms, "plain_ms": plain_ms, "max_abs_err": e, **bound(flops, nbytes)})
+    # 750 chained T = 1 launches, as a 10 s session of one-hop pushes makes
+    gx = 0.5 * torch.randn(750, 4, 4 * h, generator=gen, device=dev)
+    h0 = 0.1 * torch.randn(4, h, generator=gen, device=dev)
+    c0 = 0.1 * torch.randn(4, h, generator=gen, device=dev)
+    ys, hh, cc = [], h0, c0
+    for t in range(750):
+        y, hh, cc = lstm_scan(gx[t:t + 1], w_hh, hh, cc)
+        ys.append(y)
+    whole = lstm_scan(gx, w_hh, h0, c0)
+    torch.cuda.synchronize()
+    chained = (torch.cat(ys), hh, cc)
+    e = max(float((g - w).abs().max()) for g, w in zip(chained, whole))
+    chain_ok = all(torch.allclose(g, w, **LSTM_TOL) for g, w in zip(chained, whole))
+    err = max(err, e)
+    if bad or not chain_ok:
+        raise PhaseError(f"kernel 3 at streaming shapes beyond rtol 1e-5/atol 1e-6: {bad}; "
+                         f"750 chained T=1 vs one T=750: max|err| {e:.2e}")
+    step = next(r for r in rows if r["T"] == 1 and r["B"] == 4)
+    lib = torch.nn.LSTM(h, h).to(dev)
+    x1 = torch.randn(1, 4, h, generator=gen, device=dev)
+    state = (0.1 * torch.randn(1, 4, h, generator=gen, device=dev),
+             0.1 * torch.randn(1, 4, h, generator=gen, device=dev))
+    step["library_ms"] = time_ms(lambda: lib(x1, state), 20)
+    # a step is a few µs of device work: back-to-back events time the host,
+    # so the device times come from torch.profiler
+    device_ms = _tool("codebook_ablate").device_ms
+    gx1 = 0.5 * torch.randn(1, 4, 4 * h, generator=gen, device=dev)
+    step["device_ms"] = device_ms(lambda: lstm_scan(gx1, w_hh, state[0][0], state[1][0]))
+    step["library_device_ms"] = device_ms(lambda: lib(x1, state))
+    step["chain_750_max_abs_err"] = e
+    return rows, err, step
+
+
+def _stream_codebook(gen: torch.Generator) -> list:
+    """Kernel 1 at a one-hop push's rows (4: B = 4 sessions) and an 8-hop
+    push's (32), 1024 x 128, against its plain version."""
+    from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin, codebook_argmin_plain
+
+    ablate = _tool("codebook_ablate")
+    rows = []
+    for t in (4, 32):
+        flat, cb = ablate.inputs(gen, 1024, 128, t)
+        got, want = codebook_argmin(flat, cb), codebook_argmin_plain(flat, cb)
+        torch.cuda.synchronize()
+        k, gap = _compare_codes(flat, cb, got, want)
+        flops, nbytes = 2.0 * t * 1024 * 128 + 2.0 * 1024 * 128, 4.0 * (t * 128 + 1024 * 128 + t)
+        rows.append({"N": 1024, "D": 128, "T": t, "served": False, "stream": True,
+                     "ms": time_ms(lambda: codebook_argmin(flat, cb)),
+                     "device_ms": ablate.device_ms(lambda: codebook_argmin(flat, cb)),
+                     "plain_ms": time_ms(lambda: codebook_argmin_plain(flat, cb)),
+                     "near_ties": k, "max_gap": gap, **bound(3 * flops, nbytes, TF32_FLOPS)})
+    return rows
+
+
+def phase_encodec_stream(model, gen: torch.Generator, card: str) -> dict:
+    """Streaming sessions of full-width Encodec-24k at 6 kbps (n_q = 8):
+    4 sessions as one B = 4 batch of 10 s clips, pushed in chunks of 1 hop
+    (13.3 ms; after the 8-hop first push), 8 hops and 75 hops (1 s), and one
+    session with ``block_hops=(8, 1)`` fed ragged client chunks. Each run's
+    codes must equal the card's full encode of the clips apart from
+    near-ties (the first differing stage of a frame within 1e-5 relative of
+    its top-2 gap), and its audio the full decode of its own codes within
+    rtol 1e-4 / atol 1e-5. Kernel 3 is held to its plain loop at T = 1, 8
+    and 75 from carried state and over 750 chained T = 1 launches, kernel 1
+    at 4 and 32 rows. A one-hop session from the very first push is run on
+    2 s and its difference from the full forward reported (not held). The
+    kernels' launches are counted per run."""
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    lstm_rows, lstm_err, step = _stream_kernel3(model, gen)
+    cb_rows = _stream_codebook(gen)
+    sr, hop, n_q = model.config.sample_rate, model.encoder.hop_length, model._n_q()
+    hops = int(STREAM_SECONDS * sr) // hop
+    rng = np.random.default_rng(SEED + 5)
+    audio = (0.3 * rng.standard_normal((4, hops * hop))).astype(np.float32)
+    x = torch.as_tensor(audio[:, None, :], device=DEVICE)
+    full = model.encode(x)[0].codes
+    runs = {"1 hop": (audio, _pushes(FIRST_HOPS, 1, hops), None),
+            "8 hops": (audio, _pushes(8, 8, hops), None),
+            "75 hops": (audio, _pushes(75, 75, hops), None),
+            "ragged, block_hops=(8, 1)": (audio[:1], _ragged_pushes(hops), (8, 1))}
+    for name, (a, pushes, blocks) in runs.items():  # warm: cuDNN picks its algorithms
+        _session_run(model, a, pushes[:3], n_q, blocks)
+    counts, want, summary, failures = dict(_NO_LAUNCHES), dict(_NO_LAUNCHES), {}, []
+    for name, (a, pushes, blocks) in runs.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = _session_run(model, a, pushes, n_q, blocks)
+        torch.cuda.synchronize()
+        run_counts = kernels.launch_counts()
+        # a sub-step: n_q codebook launches and 2 LSTM layers, encode and decode
+        steps = len(_decompose_pushes(pushes, blocks))
+        run_want = {**_NO_LAUNCHES, "codebook_argmin": n_q * steps, "lstm_scan": 4 * steps}
+        for key in KERNELS:
+            counts[key] += run_counts[key]
+            want[key] += run_want[key]
+        b = a.shape[0]
+        frames, gap = _stream_code_gaps(model, x[:b], full[:b], res["codes"])
+        ref = model.decoder(model.quantizer.decode(res["codes"]))
+        err = float((res["audio"] - ref).abs().max())
+        close = torch.allclose(res["audio"], ref, rtol=1e-4, atol=1e-5)
+        # the mean chunk after the first push
+        chunk_ms = (hops - pushes[0][1]) / (len(pushes) - 1) * hop / sr * 1e3
+        row = {"sessions": b, "pushes": res["pushes"], "chunk_ms": chunk_ms,
+               "launches_a_push": sum(run_counts.values()) / res["pushes"],
+               "enc_ms_p50": _pct(res["enc_ms"], 50), "enc_ms_p90": _pct(res["enc_ms"], 90),
+               "dec_ms_p50": _pct(res["dec_ms"], 50), "dec_ms_p90": _pct(res["dec_ms"], 90),
+               "wall_ms_p50": _pct(res["wall_ms"], 50), "wall_ms_p90": _pct(res["wall_ms"], 90),
+               "frames_differing": frames, "max_rel_gap": gap, "audio_max_abs_err": err}
+        summary[name] = row
+        if gap > 1e-5 or not close or res["codes"].shape != (b, n_q, hops):
+            failures.append((name, frames, gap, err))
+        print(f"    stream {name}: {b} session(s), {res['pushes']} pushes; a push (enc + dec, "
+              f"CUDA events) p50 {row['enc_ms_p50']:.2f} + {row['dec_ms_p50']:.2f} ms, p90 "
+              f"{row['enc_ms_p90']:.2f} + {row['dec_ms_p90']:.2f} ms; wall p50 "
+              f"{row['wall_ms_p50']:.2f} / p90 {row['wall_ms_p90']:.2f} ms against a "
+              f"{chunk_ms:.1f} ms chunk; {row['launches_a_push']:.1f} kernel launches a push "
+              f"({run_counts['codebook_argmin']} codebook + {run_counts['lstm_scan']} LSTM in "
+              f"all); "
+              f"frames whose codes differ from the full encode "
+              f"{frames} of {b * hops} (largest first-stage gap {gap:.1e} rel.); audio vs "
+              f"full decode max|err| {err:.2e}")
+    # a one-hop session from the very first push
+    short_hops = min(hops, int(SHORT_SECONDS * sr) // hop)
+    short = audio[:, : short_hops * hop]
+    res = _session_run(model, short, _pushes(1, 1, short_hops), n_q)
+    xs = torch.as_tensor(short[:, None, :], device=DEVICE)
+    frames, gap = _stream_code_gaps(model, xs, model.encode(xs)[0].codes, res["codes"])
+    err = float((res["audio"] - model.decoder(model.quantizer.decode(res["codes"]))).abs().max())
+    summary["1 hop from the first push (not held)"] = {
+        "hops": short_hops, "frames_differing": frames, "max_rel_gap": gap,
+        "audio_max_abs_err": err}
+    print(f"    stream 1 hop from the first push ({short_hops} hops, not held): frames "
+          f"differing from the full encode {frames} of {4 * short_hops} (largest first-stage "
+          f"gap {gap:.1e}); audio vs full decode max|err| {err:.2e}")
+    print(f"    kernel 3 at T=1 B=4: {step['ms'] * 1e3:.1f} us a call (device "
+          f"{step['device_ms'] * 1e3:.1f}), plain {step['plain_ms'] * 1e3:.1f} us, "
+          f"torch.nn.LSTM (cuDNN) one step {step['library_ms'] * 1e3:.1f} us (device "
+          f"{step['library_device_ms'] * 1e3:.1f}), bound {step['bound_ms'] * 1e3:.2f} us "
+          f"({step['bound_by']}); 750 chained T=1 launches vs one T=750 max|err| "
+          f"{step['chain_750_max_abs_err']:.2e}")
+    for r in cb_rows:
+        print(f"    codebook at {r['T']} rows x 1024 x 128: {r['ms'] * 1e3:.1f} us a call "
+              f"(device {r['device_ms'] * 1e3:.1f}), plain {r['plain_ms'] * 1e3:.1f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us; near-tie rows {r['near_ties']}")
+    failed = f"; FAILED {failures}" if failures else ""
+    phase("encodec stream", not failures and counts == want,
+          f"{len(runs)} runs, codes equal to the full encode apart from near-ties, audio within "
+          f"rtol 1e-4/atol 1e-5 of the full decode{failed}; "
+          f"launches {counts} == {want}; kernel 3 at T = 1/8/75 and chained vs plain max|err| "
+          f"{lstm_err:.2e}; on {card}")
+    return {"counts": counts, "runs": summary, "lstm_rows": lstm_rows, "codebook_rows": cb_rows,
+            "lstm_step": step}
+
+
+def _decompose_pushes(pushes, blocks) -> list[int]:
+    """The encoder sub-steps a session runs for ``pushes``: the first whole,
+    each later one split by ``blocks`` (streaming._decompose)."""
+    from neuralcodecs_tpu_torch.models.encodec.streaming import _decompose, _norm_blocks
+
+    blocks = _norm_blocks(blocks)
+    out = [pushes[0][1] - pushes[0][0]]
+    for a, b in pushes[1:]:
+        n = b - a
+        out += [n] if blocks is None or n in blocks else _decompose(n, blocks)
+    return out
+
+
+# ------------------------------------------------ LM-coded .ecdc phase
+
+
+@contextlib.contextmanager
+def _decoded_codes():
+    """Record the codes the LM-coded decode path returns, as it runs."""
+    from neuralcodecs_tpu_torch.models.encodec import compressor
+
+    seen, original = [], compressor._lm_decode_entries
+
+    def record(*args, **kwargs):
+        out = original(*args, **kwargs)
+        seen.extend(out)
+        return out
+
+    compressor._lm_decode_entries = record
+    try:
+        yield seen
+    finally:
+        compressor._lm_decode_entries = original
+
+
+def _timed_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _lm_step_ms(lm, batch: int, k: int, steps: int = 100) -> float:
+    """Mean CUDA-event time of an LM step at ``batch`` rows of k codebooks."""
+    inp = torch.zeros(batch, k, 1, dtype=torch.long, device=DEVICE)
+    state = lm.init_state(batch)
+    for _ in range(3):
+        _, state = lm.step(inp, state)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        _, state = lm.step(inp, state)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def _cdf_rows_differing(lm, codes: np.ndarray) -> tuple[int, int, float]:
+    """(CDF rows that differ between the card's LM and the same LM on the
+    CPU, rows, max relative pdf difference), teacher-forced over one clip's
+    codes [K, T] at batch 1."""
+    from neuralcodecs_tpu_torch.models.encodec.entropy import build_stable_quantized_cdf_batch
+    from neuralcodecs_tpu_torch.models.encodec.lm import EncodecLanguageModel
+
+    cpu = EncodecLanguageModel(lm.config, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()})
+    k, t = codes.shape
+    inputs = np.zeros((t, 1, k, 1), np.int64)
+    inputs[1:, 0, :, 0] = codes[:, :-1].T + 1
+    pdfs = []
+    for model in (lm, cpu):
+        state, out = model.init_state(1), []
+        for step in range(t):
+            probas, state = model.step(torch.as_tensor(inputs[step]), state)
+            out.append(probas[0, :, :, 0].T.cpu().numpy())           # [k, card]
+        pdfs.append(np.concatenate(out))
+    cdfs = [build_stable_quantized_cdf_batch(p, 24) for p in pdfs]
+    rel = np.abs(pdfs[0] - pdfs[1]) / np.maximum(np.abs(pdfs[1]), 1e-30)
+    return int((cdfs[0] != cdfs[1]).any(axis=1).sum()), k * t, float(rel.max())
+
+
+def phase_ecdc_lm(model, model48, card: str) -> dict:
+    """The LM-coded .ecdc path at full width: Encodec-24k at 6 kbps with the
+    24 kHz LM's shape (32 codebooks of 1024, dimension 200, 8 heads, 5
+    layers, past context 262; seeded weights). ``compress_batch`` of 4 x 10 s
+    clips at lm_batch 4, one clip at lm_batch 1, ``decompress_batch``, and
+    Encodec-48k's 2.5 s stereo clip through its own seeded LM (segmented:
+    the 'lp' length prefixes; its 3 frames at lm_batch 4: 'lmb'). The decoded
+    codes must equal the encoded ones bit for bit and the audio
+    decode(encode(x)) within rtol 1e-5 / atol 1e-6, through the native
+    range coder. A seeded LM is random: it compresses nothing."""
+    from neuralcodecs_tpu_torch.models.encodec import ecdc
+    from neuralcodecs_tpu_torch.native import build as native_build
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    sr = model.config.sample_rate
+    rng = np.random.default_rng(SEED + 6)
+    seconds = int(STREAM_SECONDS * sr) / sr
+    clips = [(0.3 * rng.standard_normal(int(STREAM_SECONDS * sr))).astype(np.float32)
+             for _ in range(4)]
+    n48 = int(2.5 * model48.config.sample_rate)
+    clip48 = (0.3 * rng.standard_normal((2, n48))).astype(np.float32)
+    lm = model.get_language_model(download=False)
+    lm48 = model48.get_language_model(download=False)
+    codes = [model.encode(c)[0].codes[0].cpu().numpy() for c in clips]
+    codes48 = [f.codes[0].cpu().numpy() for f in model48.encode(clip48)]
+    direct = [model.decode(model.encode(c))[..., : c.shape[-1]] for c in clips]
+    direct48 = model48.decode(model48.encode(clip48))[..., :n48]
+    k, k48 = codes[0].shape[0], codes48[0].shape[0]
+    step_ms = {b: _lm_step_ms(lm, b, k) for b in (1, 4)}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    blobs, enc_s = _timed_s(lambda: model.compress_batch(clips, use_lm=True, lm=lm, lm_batch=4))
+    with _decoded_codes() as seen:
+        outs, dec_s = _timed_s(lambda: model.decompress_batch(blobs, lm=lm))
+    blob1, enc1_s = _timed_s(lambda: model.compress(clips[0], use_lm=True, lm=lm, lm_batch=1))
+    with _decoded_codes() as seen1:
+        out1, dec1_s = _timed_s(lambda: model.decompress(blob1, lm=lm))
+    blob48 = model48.compress(clip48, use_lm=True, lm=lm48, lm_batch=4)
+    with _decoded_codes() as seen48:
+        out48 = model48.decompress(blob48, lm=lm48)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n_q48 = model48._n_q()
+    # encodes: 4 clips + 1 at 24 kHz (8 stages, 2 LSTM layers each), the 48k
+    # clip's full chunks and tail (two calls); decodes: 5 + the 48k's two
+    want = {**_NO_LAUNCHES, "codebook_argmin": 5 * k + 2 * n_q48,
+            "lstm_scan": 5 * 2 + 5 * 2 + 2 * 2 + 2 * 2}
+    headers = [ecdc.read_header(io.BytesIO(b)) for b in (blobs[0], blob1, blob48)]
+    framing = (headers[0].get("lmb") == 4 and "lmb" not in headers[1]
+               and headers[2].get("lp") is True and headers[2].get("lmb") == 4
+               and "lp" not in headers[0])
+    same_codes = (len(seen) == 4 and all(np.array_equal(s, c) for s, c in zip(seen, codes))
+                  and len(seen1) == 1 and np.array_equal(seen1[0], codes[0])
+                  and len(seen48) == len(codes48)
+                  and all(np.array_equal(s, c) for s, c in zip(seen48, codes48)))
+    pairs = list(zip(outs + [out1, out48], direct + [direct[0], direct48]))
+    errs = [float((o - d).abs().max()) for o, d in pairs]
+    close = all(torch.allclose(o, d, rtol=1e-5, atol=1e-6) for o, d in pairs)
+    native = native_build._lib is not None and native_build.library_path().is_file()
+    raw = [len(model.compress(c, use_lm=False)) for c in clips]
+    payload = [len(b) for b in blobs]
+    cdf_diff, cdf_rows, pdf_rel = _cdf_rows_differing(lm, codes[0])
+    res = {"counts": counts, "step_ms": step_ms, "encode_s": enc_s, "decode_s": dec_s,
+           "encode_1_s": enc1_s, "decode_1_s": dec1_s,
+           "encode_xrt": 4 * seconds / enc_s, "decode_xrt": 4 * seconds / dec_s,
+           "encode_1_xrt": seconds / enc1_s, "decode_1_xrt": seconds / dec1_s,
+           "lm_bytes": payload, "raw_bytes": raw, "blob48_bytes": len(blob48),
+           "cdf_rows_differing_card_vs_cpu": cdf_diff, "cdf_rows": cdf_rows,
+           "pdf_max_rel_card_vs_cpu": pdf_rel, "audio_max_abs_err": max(errs)}
+    print(f"    lm step (CUDA events, mean of 100): {step_ms[1]:.3f} ms at B=1, {step_ms[4]:.3f} "
+          f"ms at B=4 (k={k} codebooks)")
+    print(f"    lm coding: compress_batch 4 x {seconds} s at lm_batch 4 {enc_s:.2f} s "
+          f"({res['encode_xrt']:.1f} s of audio per s), decompress_batch {dec_s:.2f} s "
+          f"({res['decode_xrt']:.1f}); one clip at lm_batch 1: {enc1_s:.2f} / {dec1_s:.2f} s "
+          f"({res['encode_1_xrt']:.1f} / {res['decode_1_xrt']:.1f})")
+    print(f"    lm bytes {payload} against raw {raw} (a seeded, untrained LM compresses "
+          f"nothing); 48k stereo 2.5 s: {len(blob48)} B")
+    print(f"    card vs CPU LM, one clip teacher-forced: {cdf_diff} of {cdf_rows} CDF rows differ "
+          f"(pdfs max rel. {pdf_rel:.1e}); a stream decodes only where it was written "
+          f"(informative, not held)")
+    phase("ecdc lm", same_codes and close and framing and native and counts == want,
+          f"decoded codes == encoded bit for bit (4 at lm_batch 4, 1 at lm_batch 1, 48k's "
+          f"{len(codes48)} frames): {same_codes}; audio vs decode(encode(x)) within rtol "
+          f"1e-5/atol 1e-6: {close} (max|err| {max(errs):.2e}); headers lmb/lp {framing}; "
+          f"native coder {native_build.library_path().name}: {native}; launches {counts} == "
+          f"{want}; on {card}")
+    return res
 
 
 # ----------------------------------------------------------- DSP phases
@@ -1559,7 +2011,9 @@ def main() -> int:
         phase_ecdc_golden()
         phase_encodec_card_vs_cpu(enc)
         enc_serve = phase_encodec_serve(enc, info["smi"])
-        enc48 = phase_encodec_48k(info["smi"])
+        enc48, model48 = phase_encodec_48k(info["smi"])
+        stream = phase_encodec_stream(enc, gen, info["smi"])
+        lm_coding = phase_ecdc_lm(enc, model48, info["smi"])
         env = phase_envelope(gen)
         bq = phase_biquad(gen)
         dsp, resampled = phase_dsp_pipeline(info["smi"])
@@ -1575,8 +2029,10 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    paths = (serve, enc_serve, enc48, dsp, loud, dac_serve)
+    paths = (serve, enc_serve, enc48, stream, lm_coding, dsp, loud, dac_serve)
     launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
+    lstm["rows"] += stream["lstm_rows"]
+    cb["rows"] += stream["codebook_rows"]
     kernels_line = {"kernels": [
         _entry("codebook_argmin", "codebook.cu", "codebook.py:46", launches, cb),
         _entry("fused_residual_unit", "resunit.cu", "resunit.py:154", launches, ru),
@@ -1590,7 +2046,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": info, "seconds": time.time() - t_start, "build": built, "codebook": cb,
-             "resunit": ru, "serve": serve, "lstm": lstm, "encodec_serve": enc_serve, "encodec_48k": enc48, "envelope": env,
+             "resunit": ru, "serve": serve, "lstm": lstm, "encodec_serve": enc_serve,
+             "encodec_48k": enc48, "encodec_stream": stream, "ecdc_lm": lm_coding, "envelope": env,
              "biquad": bq, "dsp_pipeline": dsp, "loudness": loud, "resunit_dense": ru_dense,
              "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve}, indent=1))
     print(info["smi"])

@@ -9,7 +9,9 @@ arrays go to "cuda" unless the caller names a device (``device="cpu"``).
 
 Ported so far: the SNAC round trip (pad → encoder → multi-scale RVQ →
 decoder → trim), the Encodec round trip (chunking, SEANet with SLSTM,
-RVQ, overlap-add) with the raw .ecdc container, the AudioTools DSP
+RVQ, overlap-add) with the raw and LM-coded .ecdc container (the Encodec
+language model and a C++ range coder built with g++) and streaming
+sessions, the AudioTools DSP
 library (``dsp``: resampling, STFT and mel, BS.1770 loudness, effects,
 AudioSignal), and the DAC round trip with the .dac container.
 

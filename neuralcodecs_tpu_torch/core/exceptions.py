@@ -25,3 +25,7 @@ class CodecError(NeuralCodecError):
 
 class KernelBuildError(NeuralCodecError):
     """Raised when the CUDA kernels cannot be compiled or loaded."""
+
+
+class NativeBuildError(NeuralCodecError):
+    """Raised when the native (C++) range coder cannot be compiled or loaded."""

@@ -13,6 +13,7 @@ drive both packages.
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -87,6 +88,8 @@ def _conv_transpose_from_hio(w: np.ndarray, groups: int) -> np.ndarray:
 # weight is a Linear or LSTM weight stored transposed, [in, out].
 _TORCH_LAYOUT_2D = (".codebook.weight", ".codebook.embed", ".codebook.embed_avg",
                     ".project_in.weight", ".project_out.weight")
+# the Encodec LM's per-codebook embeddings [card + 1, D], torch's layout too
+_EMBEDDING = re.compile(r"(^|\.)emb\.\d+\.weight$")
 
 
 def from_jax_params(params: Mapping[str, np.ndarray],
@@ -97,9 +100,11 @@ def from_jax_params(params: Mapping[str, np.ndarray],
     params: name -> array in the JAX layouts. transposed: the weight keys of
     transposed convs with their groups (``transposed_groups(model)``); every
     other 3-D weight is a regular conv. 2-D weights named in
-    ``_TORCH_LAYOUT_2D`` keep their layout; every other 2-D weight (Linear,
-    LSTM ``weight_ih_l*`` / ``weight_hh_l*``) is ``[in, out]`` and is
-    transposed to torch's ``[out, in]``. Snake ``alpha`` [C] becomes [1, C, 1].
+    ``_TORCH_LAYOUT_2D`` and the Encodec LM's embeddings ``emb.{k}.weight``
+    keep their layout; every other 2-D weight (Linear, LSTM
+    ``weight_ih_l*`` / ``weight_hh_l*``, the LM's ``in_proj_weight``
+    [D, 3D]) is ``[in, out]`` and is transposed to torch's ``[out, in]``.
+    Snake ``alpha`` [C] becomes [1, C, 1].
     """
     transposed = transposed or {}
     out: dict[str, torch.Tensor] = {}
@@ -111,7 +116,8 @@ def from_jax_params(params: Mapping[str, np.ndarray],
             w = w.reshape(1, -1, 1)
         elif w.ndim == 3:
             w = _conv_from_hio(w)
-        elif w.ndim == 2 and not ("." + key).endswith(_TORCH_LAYOUT_2D):
+        elif (w.ndim == 2 and not ("." + key).endswith(_TORCH_LAYOUT_2D)
+              and not _EMBEDDING.search(key)):
             w = w.T
         out[key] = torch.from_numpy(np.array(w))  # a writable, contiguous copy
     return out

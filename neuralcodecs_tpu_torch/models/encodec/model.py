@@ -13,6 +13,10 @@ passes (full chunks, tail), the eager counterpart of the JAX package's
 single-program ``_stream_roundtrip_fn``. On a CUDA device each SLSTM layer
 runs the LSTM kernel and each RVQ stage the codebook kernel.
 
+The LM-coded .ecdc path takes its language model from
+``get_language_model`` / ``set_language_model`` (lm.py, compressor.py);
+streaming sessions of the causal 24 kHz model are in streaming.py.
+
 Public layouts are the JAX package's: audio [T], [C, T] or [B, C, T] in,
 [B, C, T] out; codes [B, n_q, frames].
 """
@@ -27,11 +31,13 @@ import torch
 from torch import nn
 
 from neuralcodecs_tpu_torch.core.device import resolve_device
-from neuralcodecs_tpu_torch.core.exceptions import CodecError
+from neuralcodecs_tpu_torch.core.exceptions import CodecError, LoadError
 from neuralcodecs_tpu_torch.core.weights import fold_weight_norm
 from neuralcodecs_tpu_torch.dsp.overlap import linear_overlap_add
 from neuralcodecs_tpu_torch.dsp.resample import resample_poly
+from neuralcodecs_tpu_torch.models.encodec import compressor
 from neuralcodecs_tpu_torch.models.encodec.config import EncodecConfig
+from neuralcodecs_tpu_torch.models.encodec.lm import EncodecLanguageModel, EncodecLMConfig
 from neuralcodecs_tpu_torch.models.encodec.quantize import ResidualVectorQuantizer
 from neuralcodecs_tpu_torch.models.encodec.seanet import SEANetDecoder, SEANetEncoder
 
@@ -64,7 +70,7 @@ def normalize_source_names(sd: dict) -> dict:
 
 class Encodec(nn.Module):
     """Public Encodec codec: encode / decode / forward / process_audio and
-    the raw .ecdc compress / decompress.
+    the .ecdc compress / decompress, raw or LM-coded.
 
     Weights are torch-default random from ``seed`` (made on the CPU, so the
     same seed gives the same weights on every device) until a state dict is
@@ -256,21 +262,57 @@ class Encodec(nn.Module):
             return out[0] if out.shape[1] > 1 else out[0, 0]
         return out
 
+    # ---- language model ----------------------------------------------------
+
+    _LM_CHECKPOINTS = {
+        24000: "https://dl.fbaipublicfiles.com/encodec/v0/encodec_lm_24khz-1608e3c0.th",
+        48000: "https://dl.fbaipublicfiles.com/encodec/v0/encodec_lm_48khz-7add9fc3.th",
+    }
+
+    def get_language_model(self, download: bool = True) -> EncodecLanguageModel:
+        """The LM the LM-coded .ecdc path uses: the one ``set_language_model``
+        gave, else one built on first use, on the model's device, at the
+        pretrained LM's width (dimension 200, 8 heads, 5 layers, 3.5 s of
+        past context). Loading the pretrained weights needs the checkpoint
+        loader, which the port lacks: with ``download=True`` a preset that
+        has a checkpoint raises rather than code against a random LM that
+        peers holding the real weights could not decode."""
+        lm = self.__dict__.get("_lm")
+        if lm is not None:
+            return lm
+        url = self._LM_CHECKPOINTS.get(self.config.sample_rate)
+        if download and url is not None:
+            raise LoadError(
+                f"the pretrained Encodec LM ({url}) needs the checkpoint loader, which the "
+                "port does not have yet (ROADMAP section 1, item 3, 'Loader, registry and "
+                "export'); pass download=False or call set_language_model() to use an "
+                "untrained LM")
+        lm = EncodecLanguageModel(EncodecLMConfig(
+            codebook_size=self.config.codebook_size, num_codebooks=self.num_codebooks,
+            dimension=200, num_heads=8, num_layers=5,
+            past_context=int(3.5 * self.frame_rate)), device=self.device).eval()
+        self.set_language_model(lm)
+        return lm
+
+    def set_language_model(self, lm) -> None:
+        # kept out of the module tree: the LM is not part of the codec's state dict
+        self.__dict__["_lm"] = lm
+
     # ---- .ecdc --------------------------------------------------------------
 
-    def compress(self, audio, use_lm: bool = False) -> bytes:
-        """Compress one waveform to .ecdc bytes (raw bit-packed codes)."""
-        from neuralcodecs_tpu_torch.models.encodec.compressor import compress
+    def compress(self, audio, use_lm: bool = False, lm=None, lm_batch: int = 1) -> bytes:
+        """Compress one waveform to .ecdc bytes: bit-packed codes, or with
+        ``use_lm`` range-coded against the language model's pdfs."""
+        return compressor.compress(self, audio, use_lm=use_lm, lm=lm, lm_batch=lm_batch)
 
-        return compress(self, audio, use_lm=use_lm)
+    def compress_batch(self, audios, use_lm: bool = False, lm=None,
+                       lm_batch: int | None = None) -> list[bytes]:
+        """Compress independent waveforms, sharing each LM step across them."""
+        return compressor.compress_batch(self, audios, use_lm=use_lm, lm=lm, lm_batch=lm_batch)
 
-    def compress_batch(self, audios, use_lm: bool = False) -> list[bytes]:
-        from neuralcodecs_tpu_torch.models.encodec.compressor import compress_batch
-
-        return compress_batch(self, audios, use_lm=use_lm)
-
-    def decompress(self, data: bytes) -> torch.Tensor:
+    def decompress(self, data: bytes, lm=None) -> torch.Tensor:
         """.ecdc bytes -> audio [1, C, T]."""
-        from neuralcodecs_tpu_torch.models.encodec.compressor import decompress
+        return compressor.decompress(self, data, lm=lm)
 
-        return decompress(self, data)
+    def decompress_batch(self, blobs, lm=None) -> list[torch.Tensor]:
+        return compressor.decompress_batch(self, blobs, lm=lm)

@@ -12,8 +12,14 @@ through ``ops.kernels.lstm.lstm_scan`` (the CUDA kernel on a CUDA device).
 
 Module and parameter names equal the JAX parameter names
 (``encoder.layers.7.lstm.weight_hh_l0``, ``decoder.layers.1.block.3.conv.weight``,
-``...norm.weight``); the parameterless ELU slots keep the indices. The
-``stream()`` methods are not ported yet (ROADMAP).
+``...norm.weight``); the parameterless ELU slots keep the indices.
+
+The ``stream()`` methods run one chunk of a causal model with carried
+state: each conv's input tail (its causal left context), each transposed
+conv's pre-bias overlap tail and each SLSTM's (h, c) [L, B, H], which goes
+to the LSTM kernel as h0 / c0. A first chunk (state None) takes the layer's
+normal left padding, so the chunks' outputs concatenate to the full causal
+forward. States are lists with a None slot for each stateless layer.
 """
 
 from __future__ import annotations
@@ -132,6 +138,22 @@ class SConv1d(nn.Module):
                      groups=conv.groups)
         return out if self.norm is None else self.norm(out)
 
+    def stream(self, x: torch.Tensor, state: torch.Tensor | None):
+        """One chunk x [B, Cin, Tc], Tc % stride == 0 -> (out, the input tail
+        [B, Cin, eff_k - stride] that is the next chunk's left context). A
+        first chunk (state None) is padded as the full forward pads it,
+        reflect and its short-input fallback included."""
+        if not self.causal:
+            raise ValueError("streaming requires a causal conv")
+        conv = self.conv
+        ctx = (conv.kernel_size[0] - 1) * conv.dilation[0] + 1 - conv.stride[0]
+        ext = pad1d(x, ctx, 0, self.pad_mode) if state is None else torch.cat([state, x], -1)
+        out = conv1d(ext, conv.weight, conv.bias, stride=conv.stride[0],
+                     dilation=conv.dilation[0], groups=conv.groups)
+        if self.norm is not None:
+            out = self.norm(out)
+        return out, ext[..., ext.shape[-1] - ctx:]
+
 
 class SConvTranspose1d(nn.Module):
     """ConvTranspose1d, the optional norm, then the causal or symmetric trim
@@ -156,6 +178,27 @@ class SConvTranspose1d(nn.Module):
             pad_right = self.pad_total // 2
         pad_left = self.pad_total - pad_right
         return y[..., pad_left: y.shape[-1] - pad_right]
+
+    def stream(self, x: torch.Tensor, state: torch.Tensor | None):
+        """One chunk x [B, Cin, Tc] -> (y [B, Cout, Tc·stride], tail). The
+        transposed conv's last k - stride samples overlap the next chunk:
+        they are carried before the bias and added to the next chunk's head,
+        and the bias comes after that overlap-add, as in the full causal
+        forward with trim_right_ratio = 1 (Encodec's)."""
+        if not self.causal or self.trim_right_ratio != 1.0 or self.norm is not None:
+            raise ValueError("streaming needs a causal transposed conv with "
+                             "trim_right_ratio = 1 and no norm")
+        y = conv_transpose1d(x, self.conv.weight, None, stride=self.conv.stride[0])
+        emit = x.shape[-1] * self.conv.stride[0]
+        out = y[..., :emit]
+        if self.pad_total > 0:
+            if state is not None:
+                out = torch.cat([out[..., :self.pad_total] + state, out[..., self.pad_total:]],
+                                dim=-1)
+            state = y[..., emit:]
+        else:
+            state = y[..., :0]
+        return out + self.conv.bias[:, None], state
 
 
 class ELU(nn.Module):
@@ -187,6 +230,15 @@ class SEANetResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x if self.shortcut is None else self.shortcut(x)
         return skip + self.block(x)
+
+    def stream(self, x: torch.Tensor, state: list | None):
+        """One chunk; the state holds the block's conv tails, then the
+        shortcut's (None for an identity skip)."""
+        h, states = _stream_layers(self.block, x, None if state is None else state[:-1])
+        if self.shortcut is None:
+            return x + h, states + [None]
+        skip, tail = self.shortcut.stream(x, None if state is None else state[-1])
+        return skip + h, states + [tail]
 
 
 class LSTMWeights(nn.Module):
@@ -225,16 +277,26 @@ class SLSTM(nn.Module):
         self.lstm = LSTMWeights(dim, num_layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.stream(x, None)[0]
+
+    def stream(self, x: torch.Tensor, state: tuple[torch.Tensor, torch.Tensor] | None):
+        """x [B, C, T] from the state (h, c), each [L, B, H] (zeros when
+        None) -> (out [B, H, T], the state after the last step)."""
         b = x.shape[0]
         out = x.permute(2, 0, 1)                                    # [T, B, C]
-        zeros = x.new_zeros(b, self.dim)
+        if state is None:
+            zeros = x.new_zeros(self.lstm.num_layers, b, self.dim)
+            state = (zeros, zeros)
+        h_f, c_f = [], []
         for n in range(self.lstm.num_layers):
             w_ih, w_hh, b_ih, b_hh = self.lstm.layer(n)
             # the input projection for the whole sequence: [T, B, 4H]
             gates_x = torch.matmul(out, w_ih.t()) + (b_ih + b_hh)
-            out, _, _ = lstm_scan(gates_x.contiguous(), w_hh, zeros, zeros)
+            out, h, c = lstm_scan(gates_x.contiguous(), w_hh, state[0][n], state[1][n])
+            h_f.append(h)
+            c_f.append(c)
         out = out.permute(1, 2, 0)                                  # [B, H, T]
-        return out + x if self.skip else out
+        return out + x if self.skip else out, (torch.stack(h_f), torch.stack(c_f))
 
 
 class SEANetEncoder(nn.Module):
@@ -272,6 +334,11 @@ class SEANetEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x)
 
+    def stream(self, x: torch.Tensor, states: list | None):
+        """One chunk of audio [B, C, Tc], Tc % hop_length == 0 -> (latents
+        [B, D, Tc / hop], the next state)."""
+        return _stream_layers(self.layers, x, states)
+
 
 class SEANetDecoder(nn.Module):
     """conv(k7) → SLSTM → [ELU + transposed conv + resblocks]×4 → ELU → conv(k7)."""
@@ -307,3 +374,22 @@ class SEANetDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x)
+
+    def stream(self, x: torch.Tensor, states: list | None):
+        """One chunk of latents [B, D, Fc] -> (audio [B, C, Fc·hop], the
+        next state)."""
+        return _stream_layers(self.layers, x, states)
+
+
+def _stream_layers(layers, x: torch.Tensor, states: list | None):
+    """One streaming step through a sequence of layers; a stateless layer
+    keeps a None slot."""
+    states = states if states is not None else [None] * len(layers)
+    new_states = []
+    for layer, state in zip(layers, states):
+        if hasattr(layer, "stream"):
+            x, state = layer.stream(x, state)
+        else:
+            x = layer(x)
+        new_states.append(state)
+    return x, new_states

@@ -156,14 +156,6 @@ def test_ecdc_golden_blob_raw_through_port():
     np.testing.assert_allclose(out, direct, rtol=1e-5, atol=1e-6)
 
 
-def test_ecdc_lm_path_is_not_ported_yet():
-    model, g = _golden_port()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.compress(g["audio"], use_lm=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.decompress(g["blob_lm"].tobytes())
-
-
 def test_process_audio_16k_to_24k_matches_jax():
     jmodel, port = build_pair(tiny_config(sampling_rate=24000), seed=5)
     audio = _audio(1, 2400, seed=5)[0]
