@@ -36,7 +36,14 @@ unit, 3xTF32) against the plain chain at every unit shape of a 10 s
 stream, reproduces the frozen DAC golden and its .dac bytes, checks
 full-width DAC-44k against itself on the CPU, then serves a few requests
 through it and times its round trip with the kernels and with the plain
-versions. Each served path runs with the launch counters set to 0 just
+versions. Dia: greedy generations from the tiny goldens' weights against the
+port on the CPU and against dia_ladder_golden's codes (the int8 KV cache,
+blocked read and integer dots); DiaConfig() widths at 2 + 2 layers against
+the CPU in f32 and f64; then the full 1.61 B model (seeded, f32) serving 4
+requests of 512 tokens through the DAC-44k above, a voice-clone prompt,
+generate_stream against its one-shot codes and the int8 serving ladder,
+with the decode step's time, launches, bound, syncs and idle share. Each
+served path runs with the launch counters set to 0 just
 before it and read just after, and fails unless every kernel of the path
 launched as often as the path calls it; the kernels line reports the sum
 over those paths, each kernel's time against its plain version at every
@@ -1969,6 +1976,537 @@ def phase_dac_file(model, g, tmp: Path) -> None:
           f"(max|err| {float((from_file - direct).abs().max()):.2e})")
 
 
+# ----------------------------------------------------------- Dia phases
+
+
+# a greedy code may differ between the card and the CPU only where the two
+# best logits of its step lie closer than this: at full width f32 sums in
+# other orders move a logit by up to 4.6e-4 (measured on an H100), and
+# CFG (cond + 3 (cond - uncond)) scales a difference by up to 7
+DIA_NEAR_TIE = 1e-2
+# the card's f32 error against the f64 port may be this many times the CPU
+# f32 port's; the same model with TF32 products must exceed it
+DIA_F64_FACTOR = 4.0
+# tests/make_goldens.py's DIA_LADDER_TEXTS / DIA_LADDER_KW
+DIA_LADDER_TEXTS = ["[S1]serving ladder golden", "[S2]second row"]
+DIA_LADDER_KW = dict(max_tokens=64, seed=11)
+# four two-speaker lines of 60-120 characters (the text bucket is 128 for
+# each alone and for all four)
+DIA_TEXTS = [
+    "[S1] Did you hear the rain last night? [S2] I did, it kept me up until two.",
+    "[S1] The train leaves at nine fifteen. [S2] Then we should pack the bags tonight, "
+    "not tomorrow.",
+    "[S1] Can you read the numbers back to me? [S2] Four, eight, fifteen, sixteen, "
+    "twenty-three.",
+    "[S1] Welcome back to the show. [S2] Thanks, it is good to be here again after a year.",
+]
+DIA_SERVE_KW = dict(max_tokens=512, pad_tokens_to=1024, seed=SEED)  # cli/serve.py's bucket
+
+
+def _dia_tiny_config(audio_length: int = 32):
+    """tests/test_dia.py's tiny_config, the goldens' model."""
+    from neuralcodecs_tpu_torch.models.dia.config import (
+        DiaConfig,
+        DiaDataConfig,
+        DiaDecoderConfig,
+        DiaEncoderConfig,
+    )
+
+    return DiaConfig(
+        vocab_size=256, tgt_vocab_size=36,
+        data=DiaDataConfig(text_length=16, audio_length=audio_length, channels=3,
+                           audio_eos_value=32, audio_pad_value=33, audio_bos_value=34,
+                           delay_pattern=[0, 1, 2]),
+        encoder=DiaEncoderConfig(n_layer=2, n_embd=32, n_hidden=64, n_head=2, head_dim=16),
+        decoder=DiaDecoderConfig(n_layer=2, n_embd=32, n_hidden=64, gqa_query_heads=4,
+                                 kv_heads=2, gqa_head_dim=8, cross_query_heads=2,
+                                 cross_head_dim=16))
+
+
+def _dia_golden(name: str, audio_length: int, device: str):
+    from neuralcodecs_tpu_torch.models.dia import Dia
+
+    g = np.load(ROOT / "tests" / "goldens" / name)
+    model = Dia(_dia_tiny_config(audio_length), device=device)
+    model.load_state_dict({k[3:]: g[k] for k in g.files if k.startswith("sd/")})
+    return model, g
+
+
+class _LogitWatch:
+    """Wraps the sampler of Dia's decode loop: keeps each step's top-2 logit
+    gap [B·C] and whether any logit was NaN, on the device (no sync)."""
+
+    def __init__(self):
+        from neuralcodecs_tpu_torch.models.dia import model as dia_model
+
+        self.module, self.plain = dia_model, dia_model._sample_next_token
+        self.gaps: list[torch.Tensor] = []
+        self.nan = None
+
+    def __enter__(self):
+        def watched(logits, *args):
+            top2 = torch.topk(logits, 2, dim=-1).values
+            self.gaps.append(top2[:, 0] - top2[:, 1])
+            nan = torch.isnan(logits).any()
+            self.nan = nan if self.nan is None else self.nan | nan
+            return self.plain(logits, *args)
+        self.module._sample_next_token = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.module._sample_next_token = self.plain
+
+
+def _dia_greedy_both(card, cpu, texts, **kw) -> dict:
+    """Greedy generation on the card and on the CPU. Where the step-aligned
+    code buffers differ, the first slot that does and the top-2 logit gaps
+    (the larger of the card's and the CPU's) of the codes that differ there:
+    a flip at a near-tie changes every later step, so only the first counts."""
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        with _LogitWatch() as watch:
+            st, prefill_steps, b = model._generate(texts, temperature=0.0, **kw)
+        runs[name] = (st, watch)
+    (st_card, w_card), (st_cpu, w_cpu) = runs["card"], runs["cpu"]
+    differ = st_card.generated.cpu() != st_cpu.generated
+    step0 = int(prefill_steps.min()) - 1
+    out = {"equal": not bool(differ.any()), "steps": st_cpu.step - step0, "first_slot": None,
+           "gaps": [], "near_tie": True}
+    if not out["equal"]:
+        slot = int(torch.nonzero(differ.any(dim=2).any(dim=0))[0])
+        rows, chans = torch.nonzero(differ[:, slot], as_tuple=True)
+        n = slot - 1 - step0
+        channels = differ.shape[2]
+        gaps = torch.maximum(w_card.gaps[n].cpu(), w_cpu.gaps[n]).reshape(-1, channels)
+        out.update(first_slot=slot, gaps=[float(gaps[r, c]) for r, c in zip(rows, chans)])
+        out["near_tie"] = max(out["gaps"]) < DIA_NEAR_TIE
+    codes = [m._codes(r[0], prefill_steps, b)[0] for m, r in ((card, runs["card"]),
+                                                               (cpu, runs["cpu"]))]
+    out["codes"] = codes
+    return out
+
+
+def _tie_detail(res: dict) -> str:
+    if res["equal"]:
+        return "equal"
+    return (f"differ from slot {res['first_slot']}, top-2 logit gaps there {res['gaps']} "
+            f"(near-tie < {DIA_NEAR_TIE}: {res['near_tie']})")
+
+
+def phase_dia_golden() -> dict:
+    """The tiny goldens' weights on the card: greedy dia_golden generation
+    against the port on the CPU, and the serving ladder (int8 KV cache,
+    blocked read of 16, int8 dots) against dia_ladder_golden's greedy
+    ladder_codes."""
+    card, _ = _dia_golden("dia_golden.npz", 32, DEVICE)
+    cpu, _ = _dia_golden("dia_golden.npz", 32, "cpu")
+    golden = _dia_greedy_both(card, cpu, ["[S1]golden fixture"], max_tokens=24, seed=7)
+    card, g = _dia_golden("dia_ladder_golden.npz", 64, DEVICE)
+    cpu, _ = _dia_golden("dia_ladder_golden.npz", 64, "cpu")
+    for m in (card, cpu):
+        m.enable_int8_kv_cache()
+        m.kv_read_block, m.kv_dot_int8 = 16, True
+    ladder = _dia_greedy_both(card, cpu, DIA_LADDER_TEXTS, **DIA_LADDER_KW)
+    want = g["ladder_codes"].astype(np.int32)
+    got = ladder["codes"][0]
+    ladder_ok = got.shape == want.shape and bool((got == want).all())
+    phase("dia golden", golden["near_tie"] and ladder["near_tie"] and (ladder_ok or not ladder[
+        "equal"]),
+          f"tiny dia_golden weights, greedy, {golden['steps']} steps: card vs CPU "
+          f"{_tie_detail(golden)}; serving ladder (int8 KV, block 16, int8 dots), greedy, "
+          f"{ladder['steps']} steps: card == ladder_codes {tuple(want.shape)}: {ladder_ok}, "
+          f"card vs CPU {_tie_detail(ladder)}")
+    return {"golden": {k: v for k, v in golden.items() if k != "codes"},
+            "ladder": {k: v for k, v in ladder.items() if k != "codes"},
+            "ladder_codes_equal": ladder_ok}
+
+
+def _dia_forced_logits(model, st, tokens: np.ndarray) -> list[torch.Tensor]:
+    """Logits [2B, 1, C, V] of teacher-forced decode steps from ``st``:
+    step n takes tokens[:, n] ([2B, C]) at position st.step + n."""
+    out = []
+    rows = tokens.shape[0]
+    for n in range(tokens.shape[1]):
+        step = st.step + n
+        x = model._embed_tokens(torch.as_tensor(tokens[:, n:n + 1], device=model.device))
+        pos = torch.full((rows, 1), step, dtype=torch.int64, device=model.device)
+        for layer, sc, cc in zip(model.decoder.layers, st.self_caches, st.cross_caches):
+            x = layer.step(x, pos, step, sc, cc, st.cross_mask)
+        out.append(model._decoder_logits(x))
+    return out
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """TF32 products for matmuls and convolutions, as a precision control."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def phase_dia_card_vs_cpu() -> dict:
+    """DiaConfig() widths with 2 encoder and 2 decoder layers, seeded: the
+    prefill and 16 teacher-forced decode steps on the card against the port
+    on the CPU, both f32, and against the port on the CPU in f64. The card
+    must be as close to f64 as the CPU port is, within DIA_F64_FACTOR x its
+    error (both sum in f32 in other orders; TF32 off), and the same card
+    model with TF32 products on, the control, must fall outside that limit.
+    Then a greedy 32-step generation on the card and the CPU."""
+    from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
+
+    cfg = DiaConfig()
+    cfg.encoder.n_layer = cfg.decoder.n_layer = 2
+    card = Dia(cfg, device=DEVICE, seed=SEED)
+    cpu = Dia(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    f64 = Dia(cfg, device="cpu", compute_dtype=torch.float64)
+    f64.load_state_dict(card.state_dict())
+    texts = DIA_TEXTS[:2]
+    text = card._pad_text([card.encode_text(t) for t in texts])
+    tokens = np.random.default_rng(SEED).integers(0, 1024, size=(4, 16, cfg.data.channels))
+    states, logits = {}, {}
+    runs = (("card", card), ("cpu", cpu), ("f64", f64), ("tf32", card))
+    for name, model in runs:
+        with _tf32_on() if name == "tf32" else contextlib.nullcontext():
+            delayed, steps = model._prefill([None, None], 2)
+            states[name] = model._start_state(text, delayed, steps, SEED, np.ones(2, bool),
+                                              max_tokens=64)
+            logits[name] = torch.stack([x.cpu().double() for x in
+                                        _dia_forced_logits(model, states[name], tokens)])
+    measured = ("card", "cpu", "tf32")
+    cache_err = {name: max(float((getattr(a, key).cpu().double() - getattr(b, key)).abs().max())
+                           for a, b in zip(states[name].self_caches + states[name].cross_caches,
+                                           states["f64"].self_caches + states["f64"].cross_caches)
+                           for key in ("k", "v"))
+                 for name in measured}
+    err = {name: float((logits[name] - logits["f64"]).abs().max()) for name in measured}
+    limit = {"caches": DIA_F64_FACTOR * cache_err["cpu"], "logits": DIA_F64_FACTOR * err["cpu"]}
+    close = err["card"] <= limit["logits"] and cache_err["card"] <= limit["caches"]
+    caught = err["tf32"] > limit["logits"] and cache_err["tf32"] > limit["caches"]
+    card_vs_cpu = float((logits["card"] - logits["cpu"]).abs().max())
+    scale = float(logits["f64"].abs().max())
+    finite = bool(torch.isfinite(logits["card"]).all())
+    greedy = _dia_greedy_both(card, cpu, texts, max_tokens=32, pad_tokens_to=64, seed=SEED)
+    phase("dia full-width card vs cpu", close and caught and finite and greedy["near_tie"],
+          f"DiaConfig() widths, 2+2 layers, against the CPU port in f64: prefill caches "
+          f"max|err| card {cache_err['card']:.2e}, CPU f32 {cache_err['cpu']:.2e}, TF32 control "
+          f"{cache_err['tf32']:.2e}; 16 teacher-forced steps' logits (max |logit| {scale:.2f}) "
+          f"max|err| card {err['card']:.2e}, CPU f32 {err['cpu']:.2e}, TF32 control "
+          f"{err['tf32']:.2e}; card within {DIA_F64_FACTOR:g} x CPU: {close}, control outside "
+          f"it in both: {caught}; card vs CPU f32 max|err| {card_vs_cpu:.2e}, finite {finite}; "
+          f"greedy {greedy['steps']} steps: {_tie_detail(greedy)}")
+    return {"cache_err_vs_f64": cache_err, "logits_err_vs_f64": err, "limits": limit,
+            "logits_card_vs_cpu": card_vs_cpu, "logit_scale": scale,
+            "greedy": {k: v for k, v in greedy.items() if k != "codes"}}
+
+
+def _dia_step_bytes(dia, rows: int, text_len: int, live: float) -> tuple[float, float]:
+    """(bytes, flops) of one decode step: the kernels a step reads (every
+    decoder layer's self-attention, cross-attention q / o and MLP, and the
+    logits head), the self-attention K/V of ``live`` positions and the cross
+    K/V of ``text_len``, for ``rows`` CFG rows."""
+    d = dia.config.decoder
+    mods = [dia.decoder.logits_dense]
+    for layer in dia.decoder.layers:
+        mods += [layer.self_attention, layer.cross_attention.q_proj,
+                 layer.cross_attention.o_proj, layer.mlp]
+    tensors = [t for m in mods for t in m.state_dict().values()]
+    weight_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    params = sum(t.numel() for t in tensors if t.dim() >= 2)
+    kv_elem = 1 if dia.kv_cache_int8 else 4
+    kv = d.n_layer * 2 * rows * live * d.kv_heads * (d.gqa_head_dim * kv_elem
+                                                      + (4 if dia.kv_cache_int8 else 0))
+    cross = d.n_layer * 2 * rows * text_len * d.cross_query_heads * d.cross_head_dim * 4
+    flops = 2.0 * params * rows + d.n_layer * 4.0 * rows * d.gqa_query_heads * d.gqa_head_dim * (
+        live + text_len)
+    return weight_bytes + kv + cross, flops
+
+
+def _steps_profile(step, n: int = 8) -> tuple[float, float, list]:
+    """torch.profiler (device activity) over n calls of step(): device ms
+    and device launches (kernels, copies, fills) a call, and the top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / n,
+            sum(e.count for e in events) / n,
+            [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+             for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]])
+
+
+def _dia_step_time(dia, texts, steps: int = 32) -> dict:
+    """Warm decode steps from a fresh 4-request state in the served bucket:
+    ms a step by CUDA events, the host's enqueue time a step, and from a
+    torch.profiler pass over 8 more steps the device time and the launches
+    a step."""
+    text = dia._pad_text([dia.encode_text(t) for t in texts])
+    delayed, prefill_steps = dia._prefill([None] * len(texts), len(texts))
+    st = dia._start_state(text, delayed, prefill_steps, SEED, np.ones(len(texts), bool),
+                          max_tokens=DIA_SERVE_KW["pad_tokens_to"],
+                          token_limit=DIA_SERVE_KW["max_tokens"], kv_int8=dia.kv_cache_int8)
+    sampling = dia._sampling(DIA_SERVE_KW["pad_tokens_to"], None, None, None, None)
+    for _ in range(4):
+        dia._decode_step(st, sampling)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        dia._decode_step(st, sampling)
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    device_ms, launches, top = _steps_profile(lambda: dia._decode_step(st, sampling))
+    return {"ms": ms, "host_enqueue_ms": host_ms, "device_ms": device_ms,
+            "idle": 1.0 - device_ms / ms, "launches": launches, "position": st.step, "top": top}
+
+
+def _dia_served(dia, texts, **kw) -> dict:
+    """One generate() call, as the server makes it: its audio and codes,
+    wall time, peak memory, the decode steps run (sampler calls), the
+    device->host syncs (torch.cuda.set_sync_debug_mode) and whether any
+    logit was NaN."""
+    import warnings
+
+    codes = []
+    generate_codes = dia.generate_codes
+
+    def recorded(*args, **kwargs):  # the codes under generate
+        codes.append(generate_codes(*args, **kwargs))
+        return codes[-1]
+    dia.generate_codes = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, _LogitWatch() as watch:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            audios = dia.generate(texts, **kw)
+            wall_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del dia.generate_codes
+    steps = len(watch.gaps)
+    return {"audios": audios, "codes": codes[0], "steps": steps, "wall_s": wall_s,
+            "syncs": sum("synchroniz" in str(w.message) for w in caught),
+            "tokens_per_s": steps * len(texts) / wall_s, "realtime": steps / 86.0 / wall_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "nan_logits": bool(watch.nan)}
+
+
+def _check_audio(audios, label: str) -> None:
+    for a in audios:
+        if a.ndim != 1 or not np.isfinite(a).all():
+            raise PhaseError(f"{label}: audio of shape {a.shape}, finite {np.isfinite(a).all()}")
+
+
+def _write_prompt_wav(path: Path, seconds: float, sr: int) -> None:
+    import wave
+
+    rng = np.random.default_rng(SEED + 10)
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.3 * np.sin(2 * np.pi * 180.0 * t) + 0.05 * rng.standard_normal(t.size)
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+class _CallCount:
+    """Counts calls of a model's methods (the DAC's from_codes / encode) by
+    shadowing them on the instance, and keeps each call's arguments and
+    result."""
+
+    def __init__(self, model, names):
+        self.model, self.names = model, names
+        self.records = {name: [] for name in names}
+
+    @property
+    def calls(self) -> dict:
+        return {name: len(recs) for name, recs in self.records.items()}
+
+    def __enter__(self):
+        for name in self.names:
+            method = getattr(self.model, name)
+
+            def counted(*args, _name=name, _method=method, **kw):
+                out = _method(*args, **kw)
+                self.records[_name].append((args, kw, out))
+                return out
+            self.model.__dict__[name] = counted
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names:
+            del self.model.__dict__[name]
+
+
+def phase_dia_serve(dac, card: str, tmp: Path) -> dict:
+    """The full 1.61 B Dia, seeded on the card, f32, vocoded by the smoke's
+    DAC-44k: four requests in one generate call (cli/serve.py's /tts group,
+    max_tokens 512 in the 1024 bucket: the blocked KV read is on), one
+    request with a 3 s voice-clone prompt, generate_stream of one request in
+    segments of 64 against its one-shot codes (max_tokens 128), then the
+    serving ladder (int8 weights, int8 KV cache, int8 dots) on the four
+    requests at max_tokens 128; the clone runs to max_tokens 384 (the Dia
+    phases' time budget). Kernels 1
+    and 2b run in the DAC calls. Every code is checked
+    in [0, 1023] with lengths at most max_tokens."""
+    from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
+    from neuralcodecs_tpu_torch.models.dia import model as dia_model
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    dia = Dia(DiaConfig(), device=DEVICE, seed=SEED)
+    dia.set_dac_model(dac)
+    n_params = sum(p.numel() for p in dia.parameters())
+    wav = tmp / "prompt.wav"
+    _write_prompt_wav(wav, 3.0, dac.config.sample_rate)
+    max_tokens, hop = DIA_SERVE_KW["max_tokens"], dac.config.hop_length
+    short_kw = dict(DIA_SERVE_KW, max_tokens=32)
+    stream_kw = dict(DIA_SERVE_KW, max_tokens=128)
+    ladder_kw = dict(DIA_SERVE_KW, max_tokens=128)
+    clone_kw = dict(DIA_SERVE_KW, max_tokens=384)   # 259 prompt frames, then ≈ 125 steps
+
+    def check(audios, label, limit):
+        _check_audio(audios, label)
+        frames = [a.shape[0] // hop for a in audios]
+        if max(frames) > limit:
+            raise PhaseError(f"{label}: {frames} frames, more than max_tokens {limit}")
+
+    kernels.reset_launch_counts()
+    with _CallCount(dac, ("from_codes", "encode")) as dac_calls:
+        dia.generate_codes(DIA_TEXTS, **short_kw)                       # warm-up
+        served = _dia_served(dia, DIA_TEXTS, **DIA_SERVE_KW)
+        check(served["audios"], "serve f32", max_tokens)
+        prompt = dia.load_audio_prompt(wav)
+        clone = _dia_served(dia, DIA_TEXTS[:1], audio_prompts=[prompt], **clone_kw)
+        check(clone["audios"], "voice clone", clone_kw["max_tokens"])
+        one_codes, one_len = dia.generate_codes(DIA_TEXTS[:1], **stream_kw)
+        blocks, first_codes = [], []
+        codes_stream = dia.generate_codes_stream
+
+        def recorded(*args, **kw):  # the code blocks under generate_stream
+            for block, done in codes_stream(*args, **kw):
+                if not first_codes and len(block):
+                    first_codes.append(time.perf_counter() - t0)
+                blocks.append(block)
+                yield block, done
+        dia.generate_codes_stream = recorded
+        t0 = time.perf_counter()
+        chunks, first_audio_s = [], None
+        for _, chunk in dia.generate_stream(DIA_TEXTS[0], segment_tokens=64, **stream_kw):
+            if first_audio_s is None and chunk.size:
+                first_audio_s = time.perf_counter() - t0
+            chunks.append(chunk)
+        stream_s = time.perf_counter() - t0
+        del dia.generate_codes_stream
+        streamed, first_codes_s = np.concatenate(blocks), first_codes[0]
+        _check_audio([np.concatenate(chunks)], "generate_stream")
+        f32_step = _dia_step_time(dia, DIA_TEXTS)
+        short = lambda: dia.generate_codes(DIA_TEXTS, **short_kw)  # noqa: E731
+        f32_prof_wall = _timed_s(short)[1] * 1e3
+        f32_prof = _device_profile(short, f32_prof_wall, None, reps=1)
+        f32_bytes, f32_flops = _dia_step_bytes(dia, 8, 128, f32_step["position"])
+        # the serving ladder, in place
+        dia.quantize_int8().enable_int8_kv_cache()
+        dia.kv_dot_int8 = True
+        ladder = _dia_served(dia, DIA_TEXTS, **ladder_kw)
+        check(ladder["audios"], "serve int8 ladder", ladder_kw["max_tokens"])
+        ladder_step = _dia_step_time(dia, DIA_TEXTS)
+        ladder_bytes, ladder_flops = _dia_step_bytes(dia, 8, 128, ladder_step["position"])
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n_dec, n_enc = len(_residual_units(dac.decoder)), len(_residual_units(dac.encoder))
+    want = {**_NO_LAUNCHES, "codebook_argmin": dac.config.n_codebooks * dac_calls.calls["encode"],
+            "fused_residual_unit_dense": n_dec * dac_calls.calls["from_codes"]
+            + n_enc * dac_calls.calls["encode"]}
+    for (codes, lengths), limit in ((served["codes"], max_tokens),
+                                    (clone["codes"], clone_kw["max_tokens"]),
+                                    (ladder["codes"], ladder_kw["max_tokens"]),
+                                    ((one_codes, one_len), stream_kw["max_tokens"])):
+        if codes.min() < 0 or codes.max() > 1023 or lengths.max() > limit:
+            raise PhaseError(f"codes in [{codes.min()}, {codes.max()}], lengths {lengths}")
+    one = one_codes[0, :int(one_len[0])]
+    stream_equal = streamed.shape == one.shape and bool((streamed == one).all())
+    runs = (served, clone, ladder)
+    sync_ok = all(r["syncs"] <= r["steps"] // dia_model._SYNC_EVERY + 16 for r in runs)
+
+    # after the counted path: every DAC call the path made again with the
+    # plain versions of kernels 1 and 2b, on the same inputs, against what
+    # the kernels gave there; then the vocode time of 4 x 10 s of codes
+    records = dac_calls.records
+    with _plain_kernels():
+        plain = {name: [getattr(dac, name)(*args, **kw) for args, kw, _ in recs]
+                 for name, recs in records.items()}
+    path_vocodes = [{"codes": list(np.shape(args[0])),
+                     "snr_db": _snr_db(ref.cpu().numpy().ravel(), out.cpu().numpy().ravel()),
+                     "max_abs_err": float((ref - out).abs().max())}
+                    for ref, (args, _, out) in zip(plain["from_codes"], records["from_codes"])]
+    prompt_equal = all(torch.equal(ref[1], out[1])
+                       for ref, (_, _, out) in zip(plain["encode"], records["encode"]))
+    path_snr = min(v["snr_db"] for v in path_vocodes)
+    batch = np.random.default_rng(SEED).integers(0, 1024, size=(4, 9, 861)).astype(np.int32)
+    vocode_ms = time_ms(lambda: dac.from_codes(batch), 3, 1)
+    got = dac.from_codes(batch)
+    with _plain_kernels():
+        ref = dac.from_codes(batch)
+        vocode_plain_ms = time_ms(lambda: dac.from_codes(batch), 3, 1)
+    vocode_snr = _snr_db(ref.cpu().numpy().ravel(), got.cpu().numpy().ravel())
+    res = {"params": n_params, "counts": counts, "dac_calls": dict(dac_calls.calls),
+           "stream": {"first_codes_s": first_codes_s, "first_audio_s": first_audio_s,
+                      "total_s": stream_s, "frames": int(streamed.shape[0]),
+                      "equal": stream_equal},
+           "step_f32": f32_step, "step_int8": ladder_step, "profile_f32_32_tokens": f32_prof,
+           "bound_f32": bound(f32_flops, f32_bytes), "bound_int8": bound(ladder_flops,
+                                                                         ladder_bytes),
+           "bytes_f32": f32_bytes, "bytes_int8": ladder_bytes, "vocode_ms_4x10s": vocode_ms,
+           "vocode_plain_ms_4x10s": vocode_plain_ms,
+           "vocode_snr_db_4x10s": vocode_snr, "path_vocodes": path_vocodes,
+           "prompt_codes_equal": prompt_equal,
+           "prompt_frames": int(prompt.shape[0])}
+    for key, run in (("serve", served), ("clone", clone), ("ladder", ladder)):
+        res[key] = {k: v for k, v in run.items() if k not in ("audios", "codes")}
+    for label, run, step, bnd in (("f32", served, f32_step, res["bound_f32"]),
+                                  ("int8 ladder", ladder, ladder_step, res["bound_int8"])):
+        print(f"    dia {label}: {run['steps']} steps of 4 requests in {run['wall_s']:.2f} s = "
+              f"{run['tokens_per_s']:.1f} tokens/s ({run['realtime']:.2f}x realtime a request); "
+              f"decode step {step['ms']:.2f} ms (CUDA events; host enqueue "
+              f"{step['host_enqueue_ms']:.2f} ms, device {step['device_ms']:.2f} ms, idle "
+              f"{step['idle']:.1%}, {step['launches']:.0f} launches) at position "
+              f"{step['position']}, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}); "
+              f"{run['syncs']} syncs; peak {run['peak_gb']:.2f} GB on {card}")
+        print("    top: " + ", ".join(f"{k[:40]} {ms:.3f} ms x{n:.0f}" for k, ms, n in step["top"]))
+    _print_profile("dia f32 32-token generation", f32_prof, f32_prof_wall)
+    ok = (counts == want and stream_equal and prompt_equal and path_snr > 55.0
+          and vocode_snr > 55.0
+          and n_params > 1.6e9 and not any(r["nan_logits"] for r in runs) and sync_ok)
+    phase("dia serve", ok,
+          f"{n_params} parameters; launches {counts} == {want} ({dac_calls.calls}); 4 requests "
+          f"f32: {served['wall_s']:.2f} s, {served['tokens_per_s']:.1f} tokens/s, syncs "
+          f"{served['syncs']} (at most steps / {dia_model._SYNC_EVERY} + 16: {sync_ok}); "
+          f"voice clone ({prompt.shape[0]} prompt frames) "
+          f"{clone['wall_s']:.1f} s, syncs {clone['syncs']}; stream == one-shot "
+          f"({streamed.shape[0]} frames): {stream_equal}, first codes {first_codes_s:.2f} s, "
+          f"first audio {first_audio_s:.2f} s; int8 ladder {ladder['tokens_per_s']:.1f} "
+          f"tokens/s, syncs {ladder['syncs']}; the path's {len(path_vocodes)} vocodes (codes "
+          f"{[v['codes'] for v in path_vocodes]}) again with plain kernel 2b: least SNR "
+          f"{path_snr:.1f} dB (> 55), max|err| {max(v['max_abs_err'] for v in path_vocodes):.2e}; "
+          f"the prompt's encode again with plain kernels 1 and 2b: codes equal {prompt_equal}; "
+          f"vocode of 4 x 861 frames {vocode_ms:.1f} ms (plain {vocode_plain_ms:.1f} ms, SNR "
+          f"{vocode_snr:.1f} dB > 55); no NaN logits")
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2025,11 +2563,17 @@ def main() -> int:
         dac_serve = phase_dac_serve(dac, info["smi"])
         with tempfile.TemporaryDirectory() as tmp:
             phase_dac_file(golden_dac, golden, Path(tmp))
+            t_dia = time.time()
+            dia_golden = phase_dia_golden()
+            dia_cmp = phase_dia_card_vs_cpu()
+            dia_serve = phase_dia_serve(dac, info["smi"], Path(tmp))
+            dia_serve["dia_phases_s"] = time.time() - t_dia
+            print(f"    dia phases: {dia_serve['dia_phases_s']:.1f} s")
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    paths = (serve, enc_serve, enc48, stream, lm_coding, dsp, loud, dac_serve)
+    paths = (serve, enc_serve, enc48, stream, lm_coding, dsp, loud, dac_serve, dia_serve)
     launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
     lstm["rows"] += stream["lstm_rows"]
     cb["rows"] += stream["codebook_rows"]
@@ -2049,7 +2593,8 @@ def main() -> int:
              "resunit": ru, "serve": serve, "lstm": lstm, "encodec_serve": enc_serve,
              "encodec_48k": enc48, "encodec_stream": stream, "ecdc_lm": lm_coding, "envelope": env,
              "biquad": bq, "dsp_pipeline": dsp, "loudness": loud, "resunit_dense": ru_dense,
-             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve}, indent=1))
+             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "dia_golden": dia_golden,
+             "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve}, indent=1, default=str))
     print(info["smi"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -13,7 +13,9 @@ RVQ, overlap-add) with the raw and LM-coded .ecdc container (the Encodec
 language model and a C++ range coder built with g++) and streaming
 sessions, the AudioTools DSP
 library (``dsp``: resampling, STFT and mel, BS.1770 loudness, effects,
-AudioSignal), and the DAC round trip with the .dac container.
+AudioSignal), the DAC round trip with the .dac container, and Dia 1.6B
+text-to-speech (the CFG decode loop with its int8 KV cache and blocked
+read, streaming generation, and the DAC vocoder bridge).
 
 Importing the package turns TF32 off for cuDNN and cuBLAS (both flags of
 ``ops.precision``): one TF32 pass keeps about three digits and flips
@@ -27,8 +29,9 @@ disable_tf32()
 
 from neuralcodecs_tpu_torch.dsp import AudioSignal  # noqa: E402
 from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
+from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
 from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig
 from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig
 
-__all__ = ["AudioSignal", "DAC", "DACConfig", "Encodec", "EncodecConfig", "SNAC",
-           "SNACConfig"]
+__all__ = ["AudioSignal", "DAC", "DACConfig", "Dia", "DiaConfig", "Encodec", "EncodecConfig",
+           "SNAC", "SNACConfig"]

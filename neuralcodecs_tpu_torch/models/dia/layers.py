@@ -1,0 +1,359 @@
+"""Dia transformer building blocks, PyTorch port.
+
+Counterpart of neuralcodecs_tpu.models.dia.layers. DenseGeneral kernels are
+stored ``[in_shapes..., out_features...]`` as in the Dia checkpoints, the
+layout ``torch.tensordot`` contracts directly, so parameters cross from the
+JAX package and from upstream state dicts with no transposes. RoPE is the
+split-half rotation with f32 sin/cos; attention runs at scale 1.0 (the q
+projection folds the 1/sqrt(d)) and GQA shares each K/V head across its
+query group.
+
+The decode cache (``KVCacheSlot``) is preallocated and written in place, one
+slot a step. A decode step knows its position on the host, so the reads of
+a step take Python-int slices of the cache (slots 0..step, the causal
+window) and need no device read.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in its own dtype where that is a wider float (Dia's
+    f64 reference mode)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 RMS norm over the last dim."""
+    x32 = _f32(x)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def rope_timescale(head_dim: int, min_timescale: float = 1.0,
+                   max_timescale: float = 10000.0) -> np.ndarray:
+    fraction = 2.0 * np.arange(head_dim // 2, dtype=np.float32) / head_dim
+    return (min_timescale * (max_timescale / min_timescale) ** fraction).astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, timescale: torch.Tensor) -> torch.Tensor:
+    """x: [B, T, H, Dh]; positions: [B, T] (or [1, T]). Split-half rotation."""
+    sinusoid = _f32(positions[..., None, None]) / timescale
+    sin, cos = torch.sin(sinusoid), torch.cos(sinusoid)
+    x32 = _f32(x)
+    first, second = torch.chunk(x32, 2, dim=-1)
+    out = torch.cat([first * cos - second * sin, second * cos + first * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sdpa_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: torch.Tensor | None, scale: float = 1.0) -> torch.Tensor:
+    """q: [B, T, Nq, Dh]; k/v: [B, S, Nkv, Dh]; mask: [B, T, S] bool
+    (True = attend), shared across heads. Returns [B, T, Nq, Dh]. A row with
+    every key masked gives zeros: the CFG batch's unconditional rows are all
+    padding, so their encoder and cross-attention rows are such rows."""
+    b, t, nq, dh = q.shape
+    nkv = k.shape[2]
+    q = q.reshape(b, t, nkv, nq // nkv, dh)
+    logits = torch.einsum("btkgd,bskd->bkgts", q, k) * scale
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :, :], logits, -math.inf)
+    weights = torch.nan_to_num(torch.softmax(logits, dim=-1)).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", weights, v)
+    return out.reshape(b, t, nq, dh)
+
+
+class DenseGeneral(nn.Module):
+    """tensordot layer with kernel [in..., out...].
+
+    Holds ``weight`` (f32) until ``quantize_int8`` replaces it with
+    ``weight_q8`` (int8) + ``weight_scale`` (per output), or
+    ``quantize_int4`` with ``weight_q4`` (two int4 a byte along the
+    contracted dim) + ``weight_scale4`` (per group of input rows and
+    output). The names are the JAX package's parameter keys."""
+
+    def __init__(self, in_shapes: tuple[int, ...], out_features: tuple[int, ...],
+                 device: torch.device | None = None):
+        super().__init__()
+        self.in_shapes = tuple(in_shapes)
+        self.out_features = tuple(out_features)
+        self.weight = nn.Parameter(torch.empty(*self.in_shapes, *self.out_features,
+                                               device=device), requires_grad=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        std = 1.0 / math.sqrt(int(np.prod(self.in_shapes)))
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0, generator=generator).mul_(std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if "weight_q4" in self._buffers:
+            return self._int4_matmul(x)
+        if "weight_q8" in self._buffers:
+            w = self.weight_q8.to(x.dtype) * self.weight_scale.to(x.dtype)
+        else:
+            w = self.weight.to(x.dtype)
+        n_in = len(self.in_shapes)
+        return torch.tensordot(x, w, dims=(list(range(x.dim() - n_in, x.dim())),
+                                           list(range(n_in))))
+
+    @torch.no_grad()
+    def quantize_int8(self) -> None:
+        """Weight-only int8 in place: per-output scale = amax over the
+        contracted dims / 127; the f32 kernel is freed as its int8 form lands."""
+        w = self.weight.to(torch.float32)
+        in_axes = tuple(range(len(self.in_shapes)))
+        scale = torch.amax(torch.abs(w), dim=in_axes, keepdim=True) / 127.0
+        q8 = torch.clamp(torch.round(w / torch.clamp(scale, min=1e-12)), -127, 127)
+        del w
+        del self.weight
+        self.register_buffer("weight_q8", q8.to(torch.int8))
+        self.register_buffer("weight_scale", scale)
+
+    @torch.no_grad()
+    def quantize_int4(self, group_size: int = 128) -> None:
+        """Weight-only int4 in place, nibble-packed along the contracted dim
+        (even rows in the low nibble, odd rows in the high one), scales =
+        amax / 7 over ``group_size`` consecutive input rows per output (one
+        group when ``group_size`` is odd or does not divide the input). An
+        odd contracted dim cannot be packed: it takes int8."""
+        k = int(np.prod(self.in_shapes))
+        n = int(np.prod(self.out_features))
+        if k % 2:
+            self.quantize_int8()
+            return
+        g = group_size
+        if g % 2 or k % g:
+            g = k
+        wg = self.weight.to(torch.float32).reshape(k // g, g, n)
+        scale = torch.clamp(torch.amax(torch.abs(wg), dim=1, keepdim=True) / 7.0, min=1e-12)
+        q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int32).reshape(k, n)
+        del wg
+        packed = ((q[0::2] & 0xF) | ((q[1::2] & 0xF) << 4)).to(torch.uint8)
+        del self.weight
+        self.register_buffer("weight_q4", packed.view(torch.int8))
+        self.register_buffer("weight_scale4", scale[:, 0, :])
+
+    def _int4_matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """Even input rows against the low nibbles, odd rows against the high
+        ones: two half-K products, no re-interleaved weight. int8 shifts are
+        arithmetic, so each nibble comes back sign-extended."""
+        q4, scale = self.weight_q4, self.weight_scale4
+        k2, nf = q4.shape
+        k = 2 * k2
+        n_groups = scale.shape[0]
+        g = k // n_groups
+        sg = scale.to(x.dtype)[:, None, :]                       # [K/G, 1, N]
+        w_even = ((q4 << 4) >> 4).to(x.dtype)
+        w_odd = (q4 >> 4).to(x.dtype)
+        w_even = (w_even.reshape(n_groups, g // 2, nf) * sg).reshape(k2, nf)
+        w_odd = (w_odd.reshape(n_groups, g // 2, nf) * sg).reshape(k2, nf)
+        batch_shape = x.shape[:x.dim() - len(self.in_shapes)]
+        xb = x.reshape(*batch_shape, k)
+        y = torch.matmul(xb[..., 0::2], w_even) + torch.matmul(xb[..., 1::2], w_odd)
+        return y.reshape(*batch_shape, *self.out_features)
+
+
+class RMSNorm(nn.Module):
+    """The norm's weight as a module, so its key is ``{name}.weight``."""
+
+    def __init__(self, dim: int, eps: float, device: torch.device | None = None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)
+
+
+class MlpBlock(nn.Module):
+    """Fused gate+up projection [.., 2, I] -> silu(gate)·up -> wo."""
+
+    def __init__(self, embed_dim: int, intermediate_dim: int, device: torch.device | None = None):
+        super().__init__()
+        self.wi_fused = DenseGeneral((embed_dim,), (2, intermediate_dim), device)
+        self.wo = DenseGeneral((intermediate_dim,), (embed_dim,), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fused = self.wi_fused(x)                                  # [..., 2, I]
+        return self.wo(F.silu(fused[..., 0, :]) * fused[..., 1, :])
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, position, head) int8 over the head dim, scale = amax/127."""
+    x32 = _f32(x)
+    scale = torch.amax(torch.abs(x32), dim=-1) / 127.0
+    q = torch.round(x32 / torch.clamp(scale, min=1e-12)[..., None])
+    return q.to(torch.int8), scale
+
+
+class KVCacheSlot:
+    """Preallocated decode cache: k/v [B, maxT, Nkv, Dh], written in place.
+
+    Optionally int8 with per-(batch, position, head) f32 scales ``k_scale`` /
+    ``v_scale`` [B, maxT, Nkv]: the step read then streams a byte an element
+    plus one scale a 128-dim vector."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None):
+        self.k, self.v, self.k_scale, self.v_scale = k, v, k_scale, v_scale
+
+    @staticmethod
+    def zeros(batch: int, max_len: int, n_kv: int, head_dim: int,
+              dtype=torch.float32, quantized: bool = False,
+              device: torch.device | str | None = None) -> "KVCacheSlot":
+        shape = (batch, max_len, n_kv, head_dim)
+        if quantized:
+            sshape = (batch, max_len, n_kv)
+            return KVCacheSlot(torch.zeros(shape, dtype=torch.int8, device=device),
+                               torch.zeros(shape, dtype=torch.int8, device=device),
+                               torch.zeros(sshape, device=device),
+                               torch.zeros(sshape, device=device))
+        return KVCacheSlot(torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(shape, dtype=dtype, device=device))
+
+    def _write(self, k: torch.Tensor, v: torch.Tensor, start: int) -> None:
+        end = start + k.shape[1]
+        if self.k_scale is not None:
+            (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+            self.k_scale[:, start:end] = ks
+            self.v_scale[:, start:end] = vs
+        self.k[:, start:end] = k
+        self.v[:, start:end] = v
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor, index: int) -> None:
+        """Write one step's [B, 1, Nkv, Dh] at slot ``index``, in place."""
+        self._write(k_new, v_new, index)
+
+    def prefill_write(self, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write the prompt block [B, T, Nkv, Dh] at slots 0..T-1, in place."""
+        self._write(k, v, 0)
+
+    def kv(self, dtype, length: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(k, v) of slots 0..length-1 (all by default), dequantized if int8."""
+        k, v = self.k[:, :length], self.v[:, :length]
+        if self.k_scale is None:
+            return k, v
+        k = k.to(dtype) * self.k_scale[:, :length].to(dtype)[..., None]
+        v = v.to(dtype) * self.v_scale[:, :length].to(dtype)[..., None]
+        return k, v
+
+
+def _blocked_decode_attn(q: torch.Tensor, cache: KVCacheSlot, step: int,
+                         block: int, int8_dot: bool = False) -> torch.Tensor:
+    """Decode-step GQA attention over the cache in ``block``-slot slices, up
+    to slot ``step``: flash-style running max ``m``, denominator ``l`` and
+    weighted sum ``acc`` in f32 (f64 in the reference mode). The last block is cut at slot ``step`` (the
+    JAX form masks the slots past it to -inf: they add nothing).
+
+    ``int8_dot`` (int8 cache only): q is quantized per row and q·k is a
+    product of integers; the v-scale-folded softmax numerators are
+    quantized per row of the block for p·v. Each partial sum is an integer
+    of magnitude at most 127² · K (K = 128 for q·k, the block for p·v),
+    below 2²⁴ up to K = 1040, so f32 products with TF32 off give the JAX
+    package's int32 sums exactly, in any order.
+
+    q: [B, 1, Nq, Dh]. Returns [B, 1, Nq, Dh] in q.dtype."""
+    b, _, nq, dh = q.shape
+    max_t, nkv = cache.k.shape[1], cache.k.shape[2]
+    groups = nq // nkv
+    assert max_t % block == 0, (max_t, block)
+    qg = _f32(q.reshape(b, nkv, groups, dh))
+    int8_dot = bool(int8_dot) and cache.k_scale is not None
+    if int8_dot:
+        assert block <= 1024, f"int8-dot read needs block <= 1024 for exact f32 sums, got {block}"
+        q_scale = torch.clamp(torch.amax(torch.abs(qg), dim=-1, keepdim=True) / 127.0, min=1e-30)
+        q_int = torch.clamp(torch.round(qg / q_scale), -127, 127)
+    m = torch.full((b, nkv, groups), -math.inf, dtype=qg.dtype, device=q.device)
+    l = torch.zeros((b, nkv, groups), dtype=qg.dtype, device=q.device)
+    acc = torch.zeros((b, nkv, groups, dh), dtype=qg.dtype, device=q.device)
+    for start in range(0, step + 1, block):
+        end = min(start + block, step + 1)
+        kb = cache.k[:, start:end].to(qg.dtype)
+        vb = cache.v[:, start:end].to(qg.dtype)
+        if int8_dot:
+            ks = cache.k_scale[:, start:end].transpose(1, 2)[:, :, None, :]
+            vs = cache.v_scale[:, start:end].transpose(1, 2)[:, :, None, :]
+            logits = torch.einsum("bkgd,bskd->bkgs", q_int, kb) * q_scale * ks
+        else:
+            if cache.k_scale is not None:
+                kb = kb * cache.k_scale[:, start:end, :, None]
+                vb = vb * cache.v_scale[:, start:end, :, None]
+            logits = torch.einsum("bkgd,bskd->bkgs", qg, kb)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        if int8_dot:
+            pv = p * vs
+            pv_scale = torch.clamp(torch.amax(pv, dim=-1, keepdim=True) / 127.0, min=1e-30)
+            pv_int = torch.clamp(torch.round(pv / pv_scale), 0, 127)
+            acc = acc * corr[..., None] + torch.einsum("bkgs,bskd->bkgd", pv_int, vb) * pv_scale
+        else:
+            acc = acc * corr[..., None] + torch.einsum("bkgs,bskd->bkgd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, 1, nq, dh).to(q.dtype)
+
+
+class Attention(nn.Module):
+    """Self / cross attention with q/k/v/o DenseGenerals."""
+
+    def __init__(self, q_dim: int, kv_dim: int, n_q: int, n_kv: int, head_dim: int,
+                 out_dim: int, min_timescale: float = 1.0, max_timescale: float = 10000.0,
+                 device: torch.device | None = None):
+        super().__init__()
+        self.q_proj = DenseGeneral((q_dim,), (n_q, head_dim), device)
+        self.k_proj = DenseGeneral((kv_dim,), (n_kv, head_dim), device)
+        self.v_proj = DenseGeneral((kv_dim,), (n_kv, head_dim), device)
+        self.o_proj = DenseGeneral((n_q, head_dim), (out_dim,), device)
+        self.register_buffer("timescale", torch.from_numpy(
+            rope_timescale(head_dim, min_timescale, max_timescale)).to(device), persistent=False)
+
+    def self_attn(self, x: torch.Tensor, positions: torch.Tensor, mask: torch.Tensor | None,
+                  cache: KVCacheSlot | None = None) -> torch.Tensor:
+        """Self-attention over a block (encoder, decoder prefill); with a
+        cache, its K/V are written to slots 0..T-1 as well."""
+        q = apply_rope(self.q_proj(x), positions, self.timescale)
+        k = apply_rope(self.k_proj(x), positions, self.timescale)
+        v = self.v_proj(x)
+        if cache is not None:
+            cache.prefill_write(k, v)
+        return self.o_proj(sdpa_gqa(q, k, v, mask))
+
+    def step_attn(self, x: torch.Tensor, position: torch.Tensor, cache: KVCacheSlot,
+                  index: int, kv_block: int = 0, kv_dot: bool = False) -> torch.Tensor:
+        """One decode step: x [B, 1, D], position [B, 1]. Writes slot
+        ``index`` of ``cache`` in place, then attends over slots 0..index,
+        the causal window the decode loop masks to. ``kv_block > 0`` reads
+        in blocks (``_blocked_decode_attn``, optionally with ``kv_dot``);
+        0 reads the slots at once."""
+        q = apply_rope(self.q_proj(x), position, self.timescale)
+        k = apply_rope(self.k_proj(x), position, self.timescale)
+        cache.update(k, self.v_proj(x), index)
+        if kv_block:
+            out = _blocked_decode_attn(q, cache, index, kv_block, int8_dot=kv_dot)
+        else:
+            ck, cv = cache.kv(q.dtype, index + 1)
+            out = sdpa_gqa(q, ck, cv, None)
+        return self.o_proj(out)
+
+    def cross_attn(self, x: torch.Tensor, positions: torch.Tensor, cache: KVCacheSlot,
+                   mask: torch.Tensor | None) -> torch.Tensor:
+        q = apply_rope(self.q_proj(x), positions, self.timescale)
+        return self.o_proj(sdpa_gqa(q, cache.k, cache.v, mask))
+
+    def precompute_cross_cache(self, enc_out: torch.Tensor, enc_positions: torch.Tensor,
+                               padding_mask: torch.Tensor | None) -> KVCacheSlot:
+        """K/V of the encoder output, keys zeroed at padded positions."""
+        k = apply_rope(self.k_proj(enc_out), enc_positions, self.timescale)
+        v = self.v_proj(enc_out)
+        if padding_mask is not None:
+            k = torch.where(padding_mask[:, :, None, None], k, 0.0)
+        return KVCacheSlot(k, v)
