@@ -4,14 +4,22 @@
 
 Builds the port's CUDA kernels from neuralcodecs_tpu_torch/csrc and holds
 each against its plain PyTorch version at the shapes its round trips give
-it; the codebook kernel also beside the kernel it replaced
-(tools/codebook_baseline.cu) and by its device time, at every served shape and
-with ties across its codebook slices. SNAC-24k: holds the depthwise
+it. The served models come from files: SNAC-24k, Encodec-24k and DAC-44k
+are seeded, written with save_pretrained and loaded back on the card
+through load_snac (with validate=True) / load_encodec / load_dac, state
+dicts equal, before any phase uses them; SNAC-24k also loads from a
+torch.save file under upstream's key names and gives the same codes; the
+Encodec-24k LM comes from the model cache with the network refused; Dia
+1.6B loads from a sharded export through load_dia, its vocoder through
+Dia.load_dac_model. The codebook kernel is also held beside the kernel it
+replaced (tools/codebook_baseline.cu) and by its device time, at every
+served shape and with ties across its codebook slices. SNAC-24k: holds the depthwise
 residual-unit kernels (a depthwise launch and a tensor-core launch a unit,
 3xTF32) against the plain chain at every
 unit shape of a 10 s stream, checks the port against the frozen SNAC golden
 and against itself on the CPU, then serves a few requests through full-width SNAC-24k
-(seeded random weights). Encodec: reproduces the frozen raw .ecdc stream,
+(seeded random weights, loaded from their export). Encodec: reproduces the
+frozen raw .ecdc stream,
 holds the LSTM recurrence kernel against its plain loop beside the
 floor of its per-step handoff, checks full-width Encodec-24k against
 itself on the CPU, serves a few
@@ -2351,9 +2359,28 @@ class _CallCount:
             del self.model.__dict__[name]
 
 
-def phase_dia_serve(dac, card: str, tmp: Path) -> dict:
-    """The full 1.61 B Dia, seeded on the card, f32, vocoded by the smoke's
-    DAC-44k: four requests in one generate call (cli/serve.py's /tts group,
+def _dia_from_export(tmp: Path, card: str):
+    """The full 1.61 B Dia, seeded on the card, exported with save_pretrained
+    in 2 GiB shards and loaded back through load_dia; state dicts equal. The
+    export is deleted once loaded."""
+    import shutil
+
+    from neuralcodecs_tpu_torch import load_dia
+    from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
+
+    directory = tmp / "dia"
+    dia, res = _export_and_load("dia-1.6b", Dia(DiaConfig(), device=DEVICE, seed=SEED),
+                                directory, lambda d: load_dia(d, device=DEVICE), card,
+                                max_shard_bytes=2 ** 31)
+    shutil.rmtree(directory)
+    torch.cuda.empty_cache()   # the seeded copy
+    return dia, res
+
+
+def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
+    """The full 1.61 B Dia, seeded on the card, f32, exported and loaded back
+    through load_dia, vocoded by the DAC-44k export that Dia.load_dac_model
+    loads: four requests in one generate call (cli/serve.py's /tts group,
     max_tokens 512 in the 1024 bucket: the blocked KV read is on), one
     request with a 3 s voice-clone prompt, generate_stream of one request in
     segments of 64 against its one-shot codes (max_tokens 128), then the
@@ -2362,12 +2389,15 @@ def phase_dia_serve(dac, card: str, tmp: Path) -> dict:
     phases' time budget). Kernels 1
     and 2b run in the DAC calls. Every code is checked
     in [0, 1023] with lengths at most max_tokens."""
-    from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
+    from neuralcodecs_tpu_torch.models.dac import DAC
     from neuralcodecs_tpu_torch.models.dia import model as dia_model
     from neuralcodecs_tpu_torch.ops import kernels
 
-    dia = Dia(DiaConfig(), device=DEVICE, seed=SEED)
-    dia.set_dac_model(dac)
+    dia, loaded = _dia_from_export(tmp, card)
+    dia.load_dac_model(str(dac_dir))
+    dac = dia.dac
+    if not (isinstance(dac, DAC) and dac.device == dia.device):
+        raise PhaseError(f"load_dac_model gave {type(dac).__name__} on {dac.device}")
     n_params = sum(p.numel() for p in dia.parameters())
     wav = tmp / "prompt.wav"
     _write_prompt_wav(wav, 3.0, dac.config.sample_rate)
@@ -2462,7 +2492,8 @@ def phase_dia_serve(dac, card: str, tmp: Path) -> dict:
         ref = dac.from_codes(batch)
         vocode_plain_ms = time_ms(lambda: dac.from_codes(batch), 3, 1)
     vocode_snr = _snr_db(ref.cpu().numpy().ravel(), got.cpu().numpy().ravel())
-    res = {"params": n_params, "counts": counts, "dac_calls": dict(dac_calls.calls),
+    res = {"params": n_params, "loaded": loaded, "counts": counts,
+           "dac_calls": dict(dac_calls.calls),
            "stream": {"first_codes_s": first_codes_s, "first_audio_s": first_audio_s,
                       "total_s": stream_s, "frames": int(streamed.shape[0]),
                       "equal": stream_equal},
@@ -2491,7 +2522,7 @@ def phase_dia_serve(dac, card: str, tmp: Path) -> dict:
           and vocode_snr > 55.0
           and n_params > 1.6e9 and not any(r["nan_logits"] for r in runs) and sync_ok)
     phase("dia serve", ok,
-          f"{n_params} parameters; launches {counts} == {want} ({dac_calls.calls}); 4 requests "
+          f"{n_params} parameters loaded from {loaded['bytes'] / 1e9:.2f} GB; launches {counts} == {want} ({dac_calls.calls}); 4 requests "
           f"f32: {served['wall_s']:.2f} s, {served['tokens_per_s']:.1f} tokens/s, syncs "
           f"{served['syncs']} (at most steps / {dia_model._SYNC_EVERY} + 16: {sync_ok}); "
           f"voice clone ({prompt.shape[0]} prompt frames) "
@@ -2505,6 +2536,179 @@ def phase_dia_serve(dac, card: str, tmp: Path) -> dict:
           f"vocode of 4 x 861 frames {vocode_ms:.1f} ms (plain {vocode_plain_ms:.1f} ms, SNR "
           f"{vocode_snr:.1f} dB > 55); no NaN logits")
     return res
+
+
+# --------------------------------------------------------- loader phases
+
+
+def _dir_bytes(directory: Path) -> int:
+    return sum(f.stat().st_size for f in directory.iterdir() if f.is_file())
+
+
+def _states_equal(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _export_and_load(label: str, seeded, directory: Path, load, card: str,
+                     max_shard_bytes: int | None = None):
+    """save_pretrained ``seeded`` into ``directory``, load it back on the card
+    with ``load(directory)``; the state dicts must be equal bit for bit.
+    Seconds by the host's clock around each synchronised call."""
+    from neuralcodecs_tpu_torch import save_pretrained
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_pretrained(seeded, directory, max_shard_bytes=max_shard_bytes)
+    save_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(directory)
+    t0 = time.perf_counter()
+    loaded = load(str(directory))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    equal = _states_equal(seeded, loaded)
+    files = sorted(f.name for f in directory.iterdir())
+    res = {"bytes": nbytes, "files": files, "save_s": save_s, "load_s": load_s,
+           "save_gb_per_s": nbytes / 1e9 / save_s, "load_gb_per_s": nbytes / 1e9 / load_s,
+           "equal": equal}
+    phase(f"load {label}", equal and loaded.device.type == torch.device(DEVICE).type,
+          f"save_pretrained {nbytes / 1e9:.3f} GB ({len(files)} files) in {save_s:.2f} s "
+          f"({res['save_gb_per_s']:.2f} GB/s), loaded on {loaded.device} in {load_s:.2f} s "
+          f"({res['load_gb_per_s']:.2f} GB/s), state dicts equal: {equal}; on {card}")
+    return loaded.eval(), res
+
+
+def _folded_keyset(name: str) -> list[str]:
+    """A tests/keysets fixture's key names with each weight-norm pair folded
+    to its ``weight``, less the buffers the port does not keep."""
+    fixture = json.loads((ROOT / "tests" / "keysets" / f"{name}.json").read_text())
+    names = set()
+    for key in fixture["keys"]:
+        for g_suffix, v_suffix in ((".parametrizations.weight.original0",
+                                    ".parametrizations.weight.original1"),
+                                   (".weight_g", ".weight_v")):
+            if key.endswith((g_suffix, v_suffix)):
+                key = key[: -len(g_suffix if key.endswith(g_suffix) else v_suffix)] + ".weight"
+                break
+        names.add(key)
+    return sorted(names)
+
+
+def phase_loader(tmp: Path, card: str) -> tuple:
+    """The served codecs come from files: SNAC-24k, Encodec-24k and DAC-44k
+    are seeded, exported with save_pretrained and loaded back on the card
+    through load_snac (with validate=True: validate_model's round trip runs
+    on the card) / load_encodec / load_dac; every later phase runs on the
+    loaded models. Then SNAC-24k from a torch.save file under upstream's
+    folded key names in {"state_dict": ...} nesting, read by the restricted
+    unpickler: its served 4 x 10 s batch must give the native load's codes
+    bit for bit. Returns (snac, encodec, dac, the DAC export's directory,
+    the results)."""
+    from neuralcodecs_tpu_torch import load_dac, load_encodec, load_snac
+    from neuralcodecs_tpu_torch.core import importer
+    from neuralcodecs_tpu_torch.core.loader import LoadOptions
+    from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
+    from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig
+    from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig
+
+    res = {}
+    validated = LoadOptions(validate=True)
+    snac, res["snac_24khz"] = _export_and_load(
+        "snac-24k", SNAC(SNACConfig.snac_24khz(), device=DEVICE, seed=SEED).eval(),
+        tmp / "snac_24khz", lambda d: load_snac(d, options=validated, device=DEVICE), card)
+    enc, res["encodec_24khz"] = _export_and_load(
+        "encodec-24k", Encodec(EncodecConfig.encodec_24khz(), device=DEVICE, seed=SEED).eval(),
+        tmp / "encodec_24khz", lambda d: load_encodec(d, device=DEVICE), card)
+    dac_dir = tmp / "dac_44khz"
+    dac, res["dac_44khz"] = _export_and_load(
+        "dac-44k", DAC(DACConfig.dac_44khz(), device=DEVICE, seed=SEED).eval(), dac_dir,
+        lambda d: load_dac(d, device=DEVICE), card)
+
+    # upstream's names, a torch.save file, the restricted reader
+    sd = {k: v.cpu() for k, v in snac.state_dict().items()}
+    names_ok = sorted(sd) == _folded_keyset("snac_24khz")
+    path = tmp / "snac_24khz.pth"
+    torch.save({"state_dict": sd}, path)
+    reads, reader = [], importer.load_torch_checkpoint
+    importer.load_torch_checkpoint = lambda p: reads.append(Path(p).name) or reader(p)
+    try:
+        t0 = time.perf_counter()
+        upstream = load_snac(str(path), config=SNACConfig.snac_24khz(), device=DEVICE).eval()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        importer.load_torch_checkpoint = reader
+    rng = np.random.default_rng(SEED + 1)
+    batch = (0.3 * rng.standard_normal((4, 10 * snac.config.sample_rate))).astype(np.float32)
+    want, got = snac.encode(batch), upstream.encode(batch)
+    codes_equal = all(torch.equal(a, b) for a, b in zip(want, got, strict=True))
+    res["snac_24khz_pth"] = {"bytes": path.stat().st_size, "load_s": load_s,
+                             "names_are_the_keysets": names_ok, "codes_equal": codes_equal,
+                             "reads": reads}
+    phase("load snac-24k upstream .pth", names_ok and codes_equal and reads == [path.name]
+          and _states_equal(snac, upstream),
+          f"{len(sd)} tensors under tests/keysets/snac_24khz.json's folded names: {names_ok}; "
+          f"{path.stat().st_size / 1e6:.1f} MB read by the restricted unpickler {reads} and "
+          f"loaded in {load_s:.2f} s; 4 x 10 s batch codes equal the native load's: "
+          f"{codes_equal} ({[tuple(c.shape) for c in got]})")
+    del upstream
+    return snac, enc, dac, dac_dir, res
+
+
+def phase_lm_cache(enc, tmp: Path, card: str) -> dict:
+    """The Encodec-24k LM through the cache, with the network refused: the
+    seeded 24 kHz LM is torch.saved under its checkpoint URL's cache entry
+    (ModelCache.cache_model, NEURALCODECS_CACHE pointed at a temporary
+    directory), then ``enc.get_language_model()`` resolves the URL, finds
+    the entry and loads it; its pdfs, teacher-forced over a 10 s clip's
+    codes, must equal the seeded LM's on the card. The LM-coded .ecdc phase
+    then codes with this LM."""
+    import os
+    from urllib.parse import urlparse
+
+    from neuralcodecs_tpu_torch.core import repos
+    from neuralcodecs_tpu_torch.core.cache import ModelCache
+    from neuralcodecs_tpu_torch.models.encodec import Encodec
+
+    url = enc._LM_CHECKPOINTS[enc.config.sample_rate]
+    seeded = Encodec(enc.config, device=DEVICE).get_language_model(download=False)
+    th = tmp / "lm.th"
+    torch.save({k: v.cpu() for k, v in seeded.state_dict().items()}, th)
+    previous = os.environ.get("NEURALCODECS_CACHE")
+    os.environ["NEURALCODECS_CACHE"] = str(tmp / "model_cache")
+    fetched, saved = [], (repos._download_file, repos._http_get, repos._http_post_json)
+
+    def refuse(*args, **kwargs):
+        fetched.append(args[0] if args else "")
+        raise OSError("the smoke has no network")
+
+    repos._download_file = repos._http_get = repos._http_post_json = refuse
+    try:
+        entry = ModelCache().cache_model(url, "main", {Path(urlparse(url).path).name: th})
+        t0 = time.perf_counter()
+        lm = enc.get_language_model()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        repos._download_file, repos._http_get, repos._http_post_json = saved
+        if previous is None:
+            os.environ.pop("NEURALCODECS_CACHE", None)
+        else:
+            os.environ["NEURALCODECS_CACHE"] = previous
+    rng = np.random.default_rng(SEED + 6)
+    clip = (0.3 * rng.standard_normal(STREAM_SECONDS * enc.config.sample_rate)).astype(np.float32)
+    codes = enc.encode(clip)[0].codes                                  # [1, K, T]
+    inputs = torch.zeros_like(codes, dtype=torch.long)
+    inputs[..., 1:] = codes[..., :-1].long() + 1
+    got, want = lm.forward_full(inputs), seeded.forward_full(inputs)
+    equal = torch.equal(got, want)
+    same_lm = enc.get_language_model(download=False) is lm and lm.device == enc.device
+    phase("lm from the cache", equal and same_lm and not fetched,
+          f"{url} served from {entry.relative_to(tmp)} in {load_s:.2f} s with no fetch "
+          f"({fetched}); pdfs over {tuple(codes.shape)} codes equal the seeded LM's on the "
+          f"card: {equal}; on {card}")
+    return {"load_s": load_s, "pdfs_equal": equal, "entry": str(entry.relative_to(tmp)),
+            "codes": list(codes.shape)}
 
 
 # ------------------------------------------------------------------- main
@@ -2531,44 +2735,43 @@ def main() -> int:
     torch.set_grad_enabled(False)
     t_start = time.time()
     try:
-        from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
-        from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig
-        from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig
-
-        info = phase_device()
-        built = phase_build()
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-        cb = phase_codebook(gen)
-        model = SNAC(SNACConfig.snac_24khz(), device=DEVICE, seed=SEED).eval()
-        ru = phase_resunit(model, gen, model._pad_length(10 * model.config.sample_rate))
-        phase_golden()
-        phase_card_vs_cpu(model)
-        serve = phase_serve(model, info["smi"])
-        enc = Encodec(EncodecConfig.encodec_24khz(), device=DEVICE, seed=SEED).eval()
-        lstm = phase_lstm(enc, gen)
-        phase_ecdc_golden()
-        phase_encodec_card_vs_cpu(enc)
-        enc_serve = phase_encodec_serve(enc, info["smi"])
-        enc48, model48 = phase_encodec_48k(info["smi"])
-        stream = phase_encodec_stream(enc, gen, info["smi"])
-        lm_coding = phase_ecdc_lm(enc, model48, info["smi"])
-        env = phase_envelope(gen)
-        bq = phase_biquad(gen)
-        dsp, resampled = phase_dsp_pipeline(info["smi"])
-        loud = phase_loudness(resampled, info["smi"])
-        dac = DAC(DACConfig.dac_44khz(), device=DEVICE, seed=SEED).eval()
-        ru_dense = phase_resunit_dense(dac, gen)
-        golden_dac, golden = phase_dac_golden()
-        dac_cmp = phase_dac_card_vs_cpu(dac)
-        dac_serve = phase_dac_serve(dac, info["smi"])
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_dac_file(golden_dac, golden, Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            tmp = Path(tmp_dir)
+            info = phase_device()
+            built = phase_build()
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            cb = phase_codebook(gen)
+            # the served SNAC-24k, Encodec-24k and DAC-44k, loaded from exports
+            model, enc, dac, dac_dir, loader = phase_loader(tmp, info["smi"])
+            ru = phase_resunit(model, gen, model._pad_length(10 * model.config.sample_rate))
+            phase_golden()
+            phase_card_vs_cpu(model)
+            serve = phase_serve(model, info["smi"])
+            lstm = phase_lstm(enc, gen)
+            phase_ecdc_golden()
+            phase_encodec_card_vs_cpu(enc)
+            enc_serve = phase_encodec_serve(enc, info["smi"])
+            enc48, model48 = phase_encodec_48k(info["smi"])
+            stream = phase_encodec_stream(enc, gen, info["smi"])
+            loader["lm_cache"] = phase_lm_cache(enc, tmp, info["smi"])
+            lm_coding = phase_ecdc_lm(enc, model48, info["smi"])
+            env = phase_envelope(gen)
+            bq = phase_biquad(gen)
+            dsp, resampled = phase_dsp_pipeline(info["smi"])
+            loud = phase_loudness(resampled, info["smi"])
+            ru_dense = phase_resunit_dense(dac, gen)
+            golden_dac, golden = phase_dac_golden()
+            dac_cmp = phase_dac_card_vs_cpu(dac)
+            dac_serve = phase_dac_serve(dac, info["smi"])
+            phase_dac_file(golden_dac, golden, tmp)
+            del dac
             t_dia = time.time()
             dia_golden = phase_dia_golden()
             dia_cmp = phase_dia_card_vs_cpu()
-            dia_serve = phase_dia_serve(dac, info["smi"], Path(tmp))
+            dia_serve = phase_dia_serve(dac_dir, info["smi"], tmp)
             dia_serve["dia_phases_s"] = time.time() - t_dia
             print(f"    dia phases: {dia_serve['dia_phases_s']:.1f} s")
+            loader["dia_1.6b"] = dia_serve["loaded"]
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2593,7 +2796,8 @@ def main() -> int:
              "resunit": ru, "serve": serve, "lstm": lstm, "encodec_serve": enc_serve,
              "encodec_48k": enc48, "encodec_stream": stream, "ecdc_lm": lm_coding, "envelope": env,
              "biquad": bq, "dsp_pipeline": dsp, "loudness": loud, "resunit_dense": ru_dense,
-             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "dia_golden": dia_golden,
+             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "loader": loader,
+             "dia_golden": dia_golden,
              "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve}, indent=1, default=str))
     print(info["smi"])
     print(json.dumps(kernels_line))

@@ -63,15 +63,19 @@ class ModelConfig:
 
     def to_json(self, path: str | Path) -> None:
         with open(path, "w", encoding="utf-8") as f:
-            json.dump(self.to_dict(), f, indent=2, default=_json_default)
+            json.dump(self.to_dict(), f, indent=2, default=json_default)
 
     def replace(self: T, **changes: Any) -> T:
         return dataclasses.replace(self, **changes)
 
 
-def _json_default(obj: Any):
+def json_default(obj: Any):
+    """``json.dumps``'s default for configs: sets as lists, configs by
+    ``to_dict``, nested sections (Dia's data / encoder / decoder) as dicts."""
     if isinstance(obj, (tuple, set)):
         return list(obj)
     if hasattr(obj, "to_dict"):
         return obj.to_dict()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.asdict(obj)
     raise TypeError(f"Cannot serialize {type(obj)!r}")

@@ -15,12 +15,24 @@ class LoadError(NeuralCodecError):
         super().__init__(message if source is None else f"{message} (source={source})")
 
 
+class CacheError(NeuralCodecError):
+    """Raised on model-cache failures (corruption, IO, eviction races)."""
+
+
 class ConfigurationError(NeuralCodecError):
     """Raised when a model config is missing, malformed, or inconsistent."""
 
 
 class CodecError(NeuralCodecError):
     """Raised when encode/decode fails at runtime (bad shapes, streams...)."""
+
+
+class RepositoryError(LoadError):
+    """Raised when a remote repository (HF / GitHub / direct URL) fails."""
+
+
+class ValidationError(NeuralCodecError):
+    """Raised when a loaded model fails its post-load validation gate."""
 
 
 class KernelBuildError(NeuralCodecError):

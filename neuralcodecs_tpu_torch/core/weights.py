@@ -1,4 +1,5 @@
-"""State-dict helpers: weight-norm folding and JAX-layout conversion.
+"""State-dict helpers: weight-norm folding, the JAX package's layouts, and
+the weight hooks the loader and export call on every model.
 
 ``fold_weight_norm`` is a copy of neuralcodecs_tpu.core.importer's: a
 hubertsiuzdak/snac checkpoint folded by it loads into the port's modules
@@ -8,7 +9,9 @@ with ``load_state_dict(strict=True)``.
 parameters in (neuralcodecs_tpu.ops.conv.torch_conv_weight_to_hio and
 torch_conv_transpose_weight_to_hio, the Linear and Snake conversions in
 neuralcodecs_tpu.models.layers), so one set of seeded JAX parameters can
-drive both packages.
+drive both packages; ``to_jax_params`` is its exact inverse. Those layouts
+are the "native" layout of a ``save_pretrained`` export, which either
+package reads back.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from neuralcodecs_tpu_torch.core.exceptions import LoadError
 
 StateDict = dict[str, np.ndarray]
 
@@ -82,6 +87,21 @@ def _conv_transpose_from_hio(w: np.ndarray, groups: int) -> np.ndarray:
     return w[:, :, ::-1]
 
 
+def _conv_to_hio(w: np.ndarray) -> np.ndarray:
+    """torch Conv1d [Cout, Cin/g, K] -> [K, Cin/g, Cout]."""
+    return np.transpose(w, (2, 1, 0))
+
+
+def _conv_transpose_to_hio(w: np.ndarray, groups: int) -> np.ndarray:
+    """torch ConvTranspose1d [Cin, Cout/g, K] -> the equivalent conv's HIO
+    [K, Cin/g, g·Cout/g]: flip the taps, then regroup."""
+    cin, cout_g, k = w.shape
+    cin_g = cin // groups
+    w = w[:, :, ::-1].reshape(groups, cin_g, cout_g, k)
+    # [g, Cin/g, Cout/g, K] -> [K, Cin/g, g, Cout/g]
+    return np.transpose(w, (3, 1, 0, 2)).reshape(k, cin_g, groups * cout_g)
+
+
 # 2-D parameters the JAX package stores in torch's own layout: SNAC's
 # codebook embeddings, Encodec's codebooks [K, D] with their EMA averages,
 # and Encodec's RVQ projections (torch Linear [out, in]). Every other 2-D
@@ -90,6 +110,10 @@ _TORCH_LAYOUT_2D = (".codebook.weight", ".codebook.embed", ".codebook.embed_avg"
                     ".project_in.weight", ".project_out.weight")
 # the Encodec LM's per-codebook embeddings [card + 1, D], torch's layout too
 _EMBEDDING = re.compile(r"(^|\.)emb\.\d+\.weight$")
+
+
+def _keeps_torch_layout(key: str) -> bool:
+    return ("." + key).endswith(_TORCH_LAYOUT_2D) or bool(_EMBEDDING.search(key))
 
 
 def from_jax_params(params: Mapping[str, np.ndarray],
@@ -116,8 +140,87 @@ def from_jax_params(params: Mapping[str, np.ndarray],
             w = w.reshape(1, -1, 1)
         elif w.ndim == 3:
             w = _conv_from_hio(w)
-        elif (w.ndim == 2 and not ("." + key).endswith(_TORCH_LAYOUT_2D)
-              and not _EMBEDDING.search(key)):
+        elif w.ndim == 2 and not _keeps_torch_layout(key):
             w = w.T
         out[key] = torch.from_numpy(np.array(w))  # a writable, contiguous copy
     return out
+
+
+def to_jax_params(state_dict: Mapping[str, np.ndarray | torch.Tensor],
+                  transposed: Mapping[str, int] | None = None) -> StateDict:
+    """A port state dict -> numpy arrays in the JAX package's layouts: the
+    exact inverse of ``from_jax_params``, key for key and bit for bit.
+
+    transposed: the weight keys of transposed convs with their groups
+    (``transposed_groups(model)``). Conv weights go to HIO, a transposed
+    conv's taps are unflipped and its groups regrouped, Snake ``alpha``
+    [1, C, 1] becomes [C], and 2-D weights are transposed to ``[in, out]``
+    except those ``from_jax_params`` keeps in torch's layout.
+    """
+    transposed = transposed or {}
+    out: StateDict = {}
+    for key, value in state_dict.items():
+        w = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+             else np.asarray(value))
+        if key in transposed:
+            w = _conv_transpose_to_hio(w, transposed[key])
+        elif key.endswith(".alpha"):
+            w = w.reshape(-1)
+        elif w.ndim == 3:
+            w = _conv_to_hio(w)
+        elif w.ndim == 2 and not _keeps_torch_layout(key):
+            w = w.T
+        out[key] = np.ascontiguousarray(w)
+    return out
+
+
+# ------------------------------------------------------------- model hooks
+
+
+class CodecWeights:
+    """The weight hooks the loader and export call on a model, so that both
+    stay model-agnostic (Dia, whose JAX layouts are the port's, has its
+    own). Mixed into SNAC, DAC and Encodec."""
+
+    def native_state_dict(self) -> StateDict:
+        """The weights as numpy arrays in the JAX package's layouts."""
+        return to_jax_params(self.state_dict(), transposed_groups(self))
+
+    def load_native_state_dict(self, tensors: Mapping[str, np.ndarray]):
+        """Load arrays in the JAX package's layouts, bit for bit: every key
+        of the model, and no other, must be there. Returns self."""
+        check_keys(self, tensors, strict=True)
+        _assign(self, from_jax_params(tensors, transposed_groups(self)))
+        return self
+
+    def load_upstream_state_dict(self, sd: Mapping[str, np.ndarray]):
+        """Load a folded checkpoint in torch's layouts under upstream's
+        names: keys the model has no slot for are dropped; a key it needs and
+        ``sd`` lacks raises LoadError. Values are cast to f32. Returns self."""
+        check_keys(self, sd, strict=False)
+        _assign(self, {k: torch.from_numpy(np.array(sd[k], np.float32))
+                       for k in self.state_dict()})
+        return self
+
+
+def check_keys(model: nn.Module, tensors: Mapping, strict: bool) -> None:
+    """LoadError unless ``tensors`` has every key of the model's state dict
+    and, when ``strict``, no other."""
+    own = model.state_dict().keys()
+    missing = sorted(set(own) - set(tensors))
+    if missing:
+        raise LoadError(f"Checkpoint lacks {len(missing)} tensors the model needs: "
+                        f"{missing[:5]}")
+    unexpected = sorted(set(tensors) - set(own))
+    if strict and unexpected:
+        raise LoadError(f"Checkpoint has {len(unexpected)} tensors the model lacks: "
+                        f"{unexpected[:5]}")
+
+
+def _assign(model: nn.Module, tensors: dict[str, torch.Tensor]) -> None:
+    own = model.state_dict()
+    for key, value in tensors.items():
+        if value.shape != own[key].shape:
+            raise LoadError(f"Checkpoint tensor {key} has shape {tuple(value.shape)}, "
+                            f"the model's is {tuple(own[key].shape)}")
+    model.load_state_dict(tensors, strict=True)

@@ -32,6 +32,8 @@ import torch
 from torch import nn
 
 from neuralcodecs_tpu_torch.core.device import resolve_device
+from neuralcodecs_tpu_torch.core.registry import registry
+from neuralcodecs_tpu_torch.core.weights import CodecWeights
 from neuralcodecs_tpu_torch.dsp.resample import resample_poly
 from neuralcodecs_tpu_torch.models.dac.config import DACConfig
 from neuralcodecs_tpu_torch.models.layers import (
@@ -185,14 +187,15 @@ class ResidualVectorQuantizer(nn.Module):
         return z_q, torch.stack(codes, dim=1)
 
 
-class DAC(nn.Module):
+class DAC(CodecWeights, nn.Module):
     """Public DAC codec: forward / encode / decode / from_codes / from_latents,
     the .dac container and process_audio.
 
     Weights are torch-default random from ``seed`` (made on the CPU, so the
-    same seed gives the same weights on every device) until a folded
-    checkpoint is loaded with ``load_state_dict``. The model lives on
-    ``device``, "cuda" when none is given."""
+    same seed gives the same weights on every device) until a checkpoint is
+    loaded: ``load_dac`` / ``load_pretrained``, or by hand a folded
+    descript state dict with ``load_upstream_state_dict``. The model lives
+    on ``device``, "cuda" when none is given."""
 
     def __init__(self, config: DACConfig | None = None, *,
                  device: torch.device | str | None = None, seed: int = 0):
@@ -295,3 +298,6 @@ class DAC(nn.Module):
         if sample_rate != self.config.sample_rate:
             audio = resample_poly(audio, sample_rate, self.config.sample_rate)
         return self.forward(audio)["audio"][0].cpu().numpy()
+
+
+registry.register("dac", DAC, DACConfig)  # the factory: DAC(config, device=, seed=)

@@ -37,6 +37,8 @@ from torch import nn
 
 from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.core.exceptions import LoadError
+from neuralcodecs_tpu_torch.core.registry import registry
+from neuralcodecs_tpu_torch.core.weights import check_keys
 from neuralcodecs_tpu_torch.models.dia.audio_delay import apply_audio_delay, revert_audio_delay
 from neuralcodecs_tpu_torch.models.dia.config import DiaConfig
 from neuralcodecs_tpu_torch.models.dia.layers import (
@@ -226,7 +228,7 @@ class Dia(nn.Module):
         if compute_dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
                 f"Dia compute_dtype {compute_dtype}: only torch.float32 (and torch.float64, "
-                "the reference mode) is ported; the bf16 modes are ROADMAP section 1 item 5")
+                "the reference mode) is ported; the bf16 modes are ROADMAP section 1 item 4")
         self.config = config or DiaConfig()
         self.compute_dtype = compute_dtype
         device = resolve_device(device)
@@ -321,6 +323,28 @@ class Dia(nn.Module):
             tensors[key] = value if isinstance(value, torch.Tensor) else torch.from_numpy(
                 np.array(value))
         return super().load_state_dict(tensors, strict=True, assign=assign)
+
+    def load_upstream_state_dict(self, state_dict) -> "Dia":
+        """The loader's checkpoint entry: ``load_state_dict`` (Dia's
+        checkpoint names and layouts are the port's own). Returns self."""
+        self.load_state_dict(state_dict)
+        return self
+
+    def native_state_dict(self) -> dict[str, np.ndarray]:
+        """The weights as numpy arrays for ``save_pretrained``: the JAX
+        package's layouts are the port's, so nothing is converted. A
+        quantized model has no native export."""
+        sd = self.state_dict()
+        if any(k.endswith(("weight_q8", "weight_q4")) for k in sd):
+            raise NotImplementedError("save_pretrained of a quantized Dia: export the f32 "
+                                      "model, then quantize after loading")
+        return {k: v.cpu().numpy() for k, v in sd.items()}
+
+    def load_native_state_dict(self, tensors) -> "Dia":
+        """Load a native export: every key of the model, and no other."""
+        check_keys(self, tensors, strict=True)
+        self.load_state_dict(tensors)
+        return self
 
     def _dense_layers(self) -> list[DenseGeneral]:
         return [m for layers in (self.encoder.layers, self.decoder.layers)
@@ -794,9 +818,11 @@ class Dia(nn.Module):
         self.__dict__["dac"] = dac
 
     def load_dac_model(self, source: str = "descript/dac_44khz") -> None:
-        raise NotImplementedError(
-            f"load_dac_model({source!r}) needs the port's loader (ROADMAP section 1 item 3); "
-            "build a DAC, load its weights and pass it to set_dac_model()")
+        """Load the vocoder with ``load_dac`` (a directory, file or repository
+        id), on this model's device."""
+        from neuralcodecs_tpu_torch.core.loader import load_dac
+
+        self.set_dac_model(load_dac(source, device=self.device).eval())
 
 
 def _sample_next_token(logits: torch.Tensor, noise: torch.Tensor | None, temperature: float,
@@ -825,3 +851,6 @@ def _sample_next_token(logits: torch.Tensor, noise: torch.Tensor | None, tempera
                                    torch.clamp(cutoff, max=probs.shape[-1] - 1))
         logits = torch.where(probs < sorted_keep, -math.inf, logits)
     return torch.argmax(logits + noise, dim=-1)
+
+
+registry.register("dia", Dia, DiaConfig)  # the factory: Dia(config, device=, seed=)

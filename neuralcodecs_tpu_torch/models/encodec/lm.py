@@ -183,8 +183,8 @@ class EncodecLanguageModel(nn.Module):
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         """Load upstream (or the port's) names, dropping a ``model.`` prefix;
-        numpy arrays are taken as they are. Returns self."""
-        sd = {(k[len("model."):] if k.startswith("model.") else k): torch.as_tensor(np.asarray(v))
+        numpy arrays (or CPU tensors) are copied in. Returns self."""
+        sd = {(k[len("model."):] if k.startswith("model.") else k): torch.from_numpy(np.array(v))
               for k, v in state_dict.items()}
         super().load_state_dict(sd, strict=strict, assign=assign)
         return self

@@ -32,7 +32,8 @@ from torch import nn
 
 from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.core.exceptions import CodecError, LoadError
-from neuralcodecs_tpu_torch.core.weights import fold_weight_norm
+from neuralcodecs_tpu_torch.core.registry import registry
+from neuralcodecs_tpu_torch.core.weights import CodecWeights, fold_weight_norm
 from neuralcodecs_tpu_torch.dsp.overlap import linear_overlap_add
 from neuralcodecs_tpu_torch.dsp.resample import resample_poly
 from neuralcodecs_tpu_torch.models.encodec import compressor
@@ -68,15 +69,16 @@ def normalize_source_names(sd: dict) -> dict:
     return out
 
 
-class Encodec(nn.Module):
+class Encodec(CodecWeights, nn.Module):
     """Public Encodec codec: encode / decode / forward / process_audio and
     the .ecdc compress / decompress, raw or LM-coded.
 
     Weights are torch-default random from ``seed`` (made on the CPU, so the
-    same seed gives the same weights on every device) until a state dict is
-    loaded: the port's own names with ``load_state_dict``, upstream or HF
-    spellings with ``load_upstream_state_dict``. The model lives on
-    ``device``, "cuda" when none is given."""
+    same seed gives the same weights on every device) until a checkpoint is
+    loaded: ``load_encodec`` / ``load_pretrained``, or by hand the port's
+    own names with ``load_state_dict``, upstream or HF spellings with
+    ``load_upstream_state_dict``. The model lives on ``device``, "cuda"
+    when none is given."""
 
     def __init__(self, config: EncodecConfig | None = None, *,
                  device: torch.device | str | None = None, seed: int = 0):
@@ -128,20 +130,18 @@ class Encodec(nn.Module):
     def load_upstream_state_dict(self, sd: dict) -> "Encodec":
         """Load an original-encodec or HF-transformers state dict: rename the
         keys, fold weight norm, fill the codebook training buffers a
-        checkpoint may omit, then ``load_state_dict(strict=True)``."""
+        checkpoint may omit, then load: keys the port has no slot for are
+        dropped, as the JAX loader drops them; a missing one raises
+        LoadError."""
         sd = fold_weight_norm({k: np.asarray(v) for k, v in normalize_source_names(sd).items()})
         for i in range(self.num_codebooks):
             prefix = f"quantizer.layers.{i}.codebook."
-            embed = sd[prefix + "embed"]
-            sd.setdefault(prefix + "embed_avg", embed)
-            sd.setdefault(prefix + "cluster_size", np.zeros(embed.shape[0], np.float32))
-            sd.setdefault(prefix + "inited", np.ones(1, np.float32))
-        # keys the port has no slot for are dropped, as the JAX loader drops
-        # them; a missing one fails the strict load
-        own = self.state_dict()
-        self.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
-                              for k, v in sd.items() if k in own}, strict=True)
-        return self
+            embed = sd.get(prefix + "embed")
+            if embed is not None:  # else the load names the missing key
+                sd.setdefault(prefix + "embed_avg", embed)
+                sd.setdefault(prefix + "cluster_size", np.zeros(embed.shape[0], np.float32))
+                sd.setdefault(prefix + "inited", np.ones(1, np.float32))
+        return super().load_upstream_state_dict(sd)
 
     def set_target_bandwidth(self, bandwidth: float) -> None:
         if bandwidth not in self.config.target_bandwidths:
@@ -273,24 +273,31 @@ class Encodec(nn.Module):
         """The LM the LM-coded .ecdc path uses: the one ``set_language_model``
         gave, else one built on first use, on the model's device, at the
         pretrained LM's width (dimension 200, 8 heads, 5 layers, 3.5 s of
-        past context). Loading the pretrained weights needs the checkpoint
-        loader, which the port lacks: with ``download=True`` a preset that
-        has a checkpoint raises rather than code against a random LM that
-        peers holding the real weights could not decode."""
+        past context). With ``download`` and a preset that has a pretrained
+        LM, its checkpoint comes through the loader's cache (fetched on a
+        miss) and loads into it; any failure raises LoadError rather than
+        code against an untrained LM that peers holding the real weights
+        could not decode. ``download=False`` keeps the seeded LM."""
         lm = self.__dict__.get("_lm")
         if lm is not None:
             return lm
-        url = self._LM_CHECKPOINTS.get(self.config.sample_rate)
-        if download and url is not None:
-            raise LoadError(
-                f"the pretrained Encodec LM ({url}) needs the checkpoint loader, which the "
-                "port does not have yet (ROADMAP section 1, item 3, 'Loader, registry and "
-                "export'); pass download=False or call set_language_model() to use an "
-                "untrained LM")
         lm = EncodecLanguageModel(EncodecLMConfig(
             codebook_size=self.config.codebook_size, num_codebooks=self.num_codebooks,
             dimension=200, num_heads=8, num_layers=5,
             past_context=int(3.5 * self.frame_rate)), device=self.device).eval()
+        url = self._LM_CHECKPOINTS.get(self.config.sample_rate)
+        if download and url is not None:
+            from neuralcodecs_tpu_torch.core.importer import import_checkpoint
+            from neuralcodecs_tpu_torch.core.loader import LoadOptions, ModelLoader
+
+            try:
+                lm.load_state_dict(import_checkpoint(ModelLoader().resolve(url, LoadOptions())))
+            except Exception as exc:
+                raise LoadError(
+                    f"Pretrained Encodec LM could not be loaded from {url}; refusing to "
+                    "continue with an untrained LM (its streams would not decode on peers "
+                    "holding the real weights). Pass download=False or call "
+                    "set_language_model() to use an untrained LM") from exc
         self.set_language_model(lm)
         return lm
 
@@ -316,3 +323,6 @@ class Encodec(nn.Module):
 
     def decompress_batch(self, blobs, lm=None) -> list[torch.Tensor]:
         return compressor.decompress_batch(self, blobs, lm=lm)
+
+
+registry.register("encodec", Encodec, EncodecConfig)  # the factory: Encodec(config, device=, seed=)

@@ -25,6 +25,8 @@ import torch
 from torch import nn
 
 from neuralcodecs_tpu_torch.core.device import resolve_device
+from neuralcodecs_tpu_torch.core.registry import registry
+from neuralcodecs_tpu_torch.core.weights import CodecWeights
 from neuralcodecs_tpu_torch.dsp.resample import linear_resample
 from neuralcodecs_tpu_torch.models.layers import (
     LocalMHA,
@@ -180,13 +182,15 @@ class ResidualVectorQuantizer(nn.Module):
         return z_q
 
 
-class SNAC(nn.Module):
+class SNAC(CodecWeights, nn.Module):
     """Public SNAC codec: forward / encode / decode / process_audio.
 
     Weights are torch-default random from ``seed`` (made on the CPU, so the
-    same seed gives the same weights on every device) until a folded
-    checkpoint is loaded with ``load_state_dict``. The model lives on
-    ``device``, "cuda" when none is given."""
+    same seed gives the same weights on every device) until a checkpoint is
+    loaded: ``load_snac`` / ``load_pretrained``, or by hand a folded
+    hubertsiuzdak/snac state dict with ``load_upstream_state_dict`` (the
+    real files' ``rel_pos.inv_freq`` buffers are dropped). The model lives
+    on ``device``, "cuda" when none is given."""
 
     def __init__(self, config: SNACConfig | None = None, *,
                  device: torch.device | str | None = None, seed: int = 0):
@@ -273,3 +277,6 @@ class SNAC(nn.Module):
             audio = linear_resample(audio, sample_rate, self.config.sample_rate)
         out, _ = self.forward(audio)
         return (out[0] if out.dim() == 2 else out).cpu().numpy()
+
+
+registry.register("snac", SNAC, SNACConfig)  # the factory: SNAC(config, device=, seed=)

@@ -386,17 +386,17 @@ def test_upstream_names_and_missing_key():
         Dia(port_config(), device="cpu").load_state_dict(sd)
 
 
-def test_device_and_unported_modes(monkeypatch):
+def test_device_and_unported_modes(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Dia(port_config())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         Dia(port_config(), device="cpu", compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         Dia(port_config(), device="cpu", compute_dtype=torch.float16)
     dia = Dia(port_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        dia.load_dac_model()
+    with pytest.raises(LoadError, match="not found"):
+        dia.load_dac_model(str(tmp_path / "absent.safetensors"))
     with pytest.raises(RuntimeError, match="No DAC vocoder"):
         dia.generate(["[S1]x"], max_tokens=8)
 

@@ -308,13 +308,21 @@ def test_lmb_bounds_and_refusals():
         model.compress(np.zeros((2, 800), np.float32), use_lm=True, lm=lm)
 
 
-def test_get_language_model():
+def test_get_language_model(tmp_path, monkeypatch):
     """At 24 kHz the LM is the pretrained one's width (dimension 200, 8
-    heads, 5 layers, past context int(3.5 x 75) = 262); download=True
-    refuses, naming the loader's ROADMAP item; the LM is built once, lives
-    on the model's device and stays out of the model's state dict."""
+    heads, 5 layers, past context int(3.5 x 75) = 262); download=True with
+    the checkpoint unreachable raises LoadError (no untrained fallback); the
+    LM is built once, lives on the model's device and stays out of the
+    model's state dict."""
+    from neuralcodecs_tpu_torch.core import repos
+
+    def unreachable(*args, **kwargs):
+        raise OSError("unreachable")
+
+    monkeypatch.setattr(repos, "_download_file", unreachable)
+    monkeypatch.setenv("NEURALCODECS_CACHE", str(tmp_path / "cache"))
     model = _tiny(sampling_rate=24000, upsampling_ratios=[8, 5, 4, 2])
-    with pytest.raises(LoadError, match="ROADMAP"):
+    with pytest.raises(LoadError, match="refusing"):
         model.get_language_model()
     keys = sorted(model.state_dict())
     lm = model.get_language_model(download=False)

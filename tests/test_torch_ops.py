@@ -427,8 +427,21 @@ def test_import_turns_tf32_off():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+LOADER_MODULES = ("cache", "events", "export", "files", "importer", "interfaces", "loader",
+                  "operations", "registry", "repos", "retry", "safetensors_io", "torch_pickle",
+                  "validation", "weights", "zoo")
+
+
 def test_port_imports_without_jax():
+    """The facade, every core module of the loader stack and every other
+    module of the port import with no JAX and nothing of the JAX package."""
     code = ("import sys, pkgutil, importlib, neuralcodecs_tpu_torch as p\n"
+            "from neuralcodecs_tpu_torch import (load_model, load_snac, load_dac, load_encodec,\n"
+            "    load_dia, load_pretrained, save_pretrained, load_zoo_model, zoo_models,\n"
+            "    ModelLoader, ModelRegistry, registry)\n"
+            f"for name in {LOADER_MODULES!r}:\n"
+            "    importlib.import_module('neuralcodecs_tpu_torch.core.' + name)\n"
+            "assert registry.architectures() == ['dac', 'dia', 'encodec', 'snac']\n"
             "for m in pkgutil.walk_packages(p.__path__, 'neuralcodecs_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'neuralcodecs_tpu.'))"
