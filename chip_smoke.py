@@ -50,7 +50,19 @@ blocked read and integer dots); DiaConfig() widths at 2 + 2 layers against
 the CPU in f32 and f64; then the full 1.61 B model (seeded, f32) serving 4
 requests of 512 tokens through the DAC-44k above, a voice-clone prompt,
 generate_stream against its one-shot codes and the int8 serving ladder,
-with the decode step's time, launches, bound, syncs and idle share. Each
+with the decode step's time, launches, bound, syncs and idle share. The
+real servers then serve the loaded models on 127.0.0.1:0 in background
+threads (cli/serve.py's CodecServer, cli/stream_serve.py's
+StreamingCodecServer; clients on keep-alive http.client connections and
+StreamClient sessions, each in a thread of its own): SNAC-24k (rounds of four
+concurrent 10 s /roundtrip requests micro-batched into batch-4 forwards,
+/encode, /decode, a 400 and a 413), Encodec-24k over HTTP and TCP on one
+device lock at the same time (four streaming sessions beside two /roundtrip
+requests, an encode session piped into a decode session, /compress?lm=1 and
+/decompress), DAC-44k (/roundtrip, /compress, /decompress) and Dia 1.6B
+(four concurrent /tts requests coalesced into one generate, /tts/stream);
+every reply equals the direct model call on the card, and each route's
+client-side and /metrics latency is printed with the card. Each
 served path runs with the launch counters set to 0 just
 before it and read just after, and fails unless every kernel of the path
 launched as often as the path calls it; the kernels line reports the sum
@@ -67,17 +79,19 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
 import queue
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import traceback
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2398,6 +2412,7 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
     dac = dia.dac
     if not (isinstance(dac, DAC) and dac.device == dia.device):
         raise PhaseError(f"load_dac_model gave {type(dac).__name__} on {dac.device}")
+    http = phase_dia_http(dia, card)   # the f32 model behind the HTTP server, counted apart
     n_params = sum(p.numel() for p in dia.parameters())
     wav = tmp / "prompt.wav"
     _write_prompt_wav(wav, 3.0, dac.config.sample_rate)
@@ -2492,7 +2507,7 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
         ref = dac.from_codes(batch)
         vocode_plain_ms = time_ms(lambda: dac.from_codes(batch), 3, 1)
     vocode_snr = _snr_db(ref.cpu().numpy().ravel(), got.cpu().numpy().ravel())
-    res = {"params": n_params, "loaded": loaded, "counts": counts,
+    res = {"params": n_params, "loaded": loaded, "counts": counts, "http": http,
            "dac_calls": dict(dac_calls.calls),
            "stream": {"first_codes_s": first_codes_s, "first_audio_s": first_audio_s,
                       "total_s": stream_s, "frames": int(streamed.shape[0]),
@@ -2711,6 +2726,447 @@ def phase_lm_cache(enc, tmp: Path, card: str) -> dict:
             "codes": list(codes.shape)}
 
 
+# ------------------------------------------------------- serving phases
+
+
+HTTP_ROUNDS = 5          # rounds of four concurrent 10 s /roundtrip requests (SNAC-24k)
+HTTP_WINDOW_MS = 50.0    # the micro-batcher's window in these phases
+DIA_HTTP_TOKENS = 64     # max_tokens of the Dia server's requests (the phases' time budget)
+DIA_HTTP_BUCKET = 1024   # --dia-token-bucket: the served bucket of the Dia phases
+
+
+class _HttpClient:
+    """One keep-alive HTTP/1.1 connection to a local server (stdlib
+    http.client); each request's client-side latency goes to ``lat`` by
+    route."""
+
+    def __init__(self, port: int, lat: dict):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+        self.lat = lat
+
+    def post(self, path: str, body: bytes, headers: dict | None = None,
+             record: bool = True) -> tuple[int, bytes]:
+        t0 = time.perf_counter()
+        self.conn.request("POST", path, body=body, headers=headers or {})
+        resp = self.conn.getresponse()
+        data = resp.read()
+        if record:
+            self.lat.setdefault(path.split("?", 1)[0], []).append(time.perf_counter() - t0)
+        if resp.getheader("Connection") == "close":
+            self.conn.close()
+        return resp.status, data
+
+    def get_json(self, path: str) -> dict:
+        self.conn.request("GET", path)
+        return json.loads(self.conn.getresponse().read())
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _concurrently(*fns) -> list:
+    """Run the callables in threads at once; their results in order (a
+    failure in any is raised here)."""
+    with ThreadPoolExecutor(max_workers=len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result(timeout=900) for f in futures]
+
+
+def _record_batches(srv) -> tuple[list, object]:
+    """Shadow a codec server's batched forward to keep a copy of each stacked
+    batch it runs; returns (the batches, the forward itself)."""
+    stacked, forward = [], srv._forward_batch
+
+    def recorded(x):
+        stacked.append(x.clone())
+        return forward(x)
+    srv._forward_batch = recorded
+    return stacked, forward
+
+
+def _batched_replies_equal(stacked, forward, bodies, replies, sr: int) -> tuple[int, int]:
+    """(replies equal to _array_to_wav of their row of a direct forward of the
+    batch the batcher stacked, batches): each request's row is found by its
+    prepared audio."""
+    from neuralcodecs_tpu_torch.cli.serve import _array_to_wav, _wav_to_array
+
+    rows = {}
+    for x in stacked:
+        out = forward(x).cpu().numpy()
+        for j in range(x.shape[0]):
+            rows[x[j].cpu().numpy().tobytes()] = out[j]
+    equal = 0
+    for body, (status, wav) in zip(bodies, replies):
+        key = _wav_to_array(body)[0].tobytes()  # [1, T]: a mono row's bytes either way
+        equal += status == 200 and key in rows and wav == _array_to_wav(rows[key], sr)
+    return equal, len(stacked)
+
+
+def _latencies(lat: dict, metrics: dict) -> dict:
+    """Per route: client-side p50 / p90 ms, and the server's /metrics count,
+    p50 and p95 ms."""
+    out = {}
+    for route, secs in sorted(lat.items()):
+        srv = metrics["routes"].get(route, {})
+        out[route] = {"n": len(secs), "p50_ms": _pct(secs, 50) * 1e3,
+                      "p90_ms": _pct(secs, 90) * 1e3, "server_count": srv.get("count"),
+                      "server_errors": srv.get("errors"),
+                      "server_p50_ms": srv.get("p50_ms"), "server_p95_ms": srv.get("p95_ms")}
+    return out
+
+
+def _print_serving(label: str, res: dict, card: str) -> None:
+    print(f"    {label}: warm-up {res['warmup_s']:.2f} s on {card}")
+    for route, r in res["latency"].items():
+        print(f"    {label} {route}: {r['n']} requests, client p50 {r['p50_ms']:.1f} / p90 "
+              f"{r['p90_ms']:.1f} ms; /metrics count {r['server_count']} (errors "
+              f"{r['server_errors']}), p50 "
+              f"{r['server_p50_ms']} / p95 {r['server_p95_ms']} ms on {card}")
+    if res.get("batcher"):
+        b = res["batcher"]
+        print(f"    {label} micro-batcher: {b['batches']} batches, mean batch {b['mean_batch']}, "
+              f"max {b['max_batch_seen']} on {card}")
+
+
+def phase_snac_http(model, card: str) -> dict:
+    """SNAC-24k behind the real HTTP server (cli/serve.py's CodecServer on
+    127.0.0.1:0, micro-batching in a 50 ms window up to 4), clients on
+    keep-alive connections in threads: rounds of four concurrent 10 s
+    /roundtrip requests, each round one batch-4 forward whose replies equal,
+    byte for byte, _array_to_wav of a direct model.forward of the batch the
+    batcher stacked; /encode's codes equal model.encode's; /decode of them
+    equals model.decode; a bad body gets 400 and an oversize Content-Length
+    413. Kernels 1 and 2a launch from the server's threads."""
+    from neuralcodecs_tpu_torch.cli.serve import (MAX_BODY_BYTES, CodecServer, _array_to_wav,
+                                                  _wav_to_array)
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    sr = model.config.sample_rate
+    rng = np.random.default_rng(SEED + 11)
+    bodies = [_array_to_wav((0.3 * rng.standard_normal(10 * sr)).astype(np.float32), sr)
+              for _ in range(4 * HTTP_ROUNDS)]
+    srv = CodecServer(model, "snac", port=0, batch_window_ms=HTTP_WINDOW_MS, max_batch=4)
+    t0 = time.perf_counter()
+    srv.warmup(lengths_s=(10.0,))
+    warm_s = time.perf_counter() - t0
+    stacked, forward = _record_batches(srv)
+    srv.start_background()
+    lat: dict = {}
+    clients = [_HttpClient(srv.port, lat) for _ in range(4)]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        replies, round_ms = [], []
+        for r in range(HTTP_ROUNDS):
+            t = time.perf_counter()
+            replies += _concurrently(*[functools.partial(c.post, "/roundtrip", bodies[4 * r + i])
+                                       for i, c in enumerate(clients)])
+            round_ms.append((time.perf_counter() - t) * 1e3)
+        enc_status, enc_body = clients[0].post("/encode", bodies[0])
+        codes = json.loads(enc_body)["codes"]
+        dec_status, dec_body = clients[0].post("/decode", json.dumps({"codes": codes}).encode())
+        bad = clients[1].post("/roundtrip", b"not a wav file", record=False)
+        oversize = clients[2].post("/roundtrip", b"x" * 16,
+                                   {"Content-Length": str(MAX_BODY_BYTES + 1)}, record=False)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        metrics = clients[3].get_json("/metrics")
+    finally:
+        for c in clients:
+            c.close()
+        srv.shutdown()
+    n_stages = len(model.config.vq_strides)
+    n_units = len(_residual_units(model.encoder)) + len(_residual_units(model.decoder))
+    forwards = len(stacked)
+    want = {**_NO_LAUNCHES, "codebook_argmin": n_stages * (forwards + 1),
+            "fused_residual_unit": n_units * (forwards + 1)}
+    equal, batches = _batched_replies_equal(stacked, forward, bodies, replies, sr)
+    x0 = _wav_to_array(bodies[0])[0][0]
+    codes_equal = enc_status == 200 and codes == [c.cpu().numpy().tolist()
+                                                  for c in model.encode(x0)]
+    decoded = model.decode([np.asarray(c, np.int32) for c in codes])[0].cpu().numpy()
+    decode_equal = dec_status == 200 and dec_body == _array_to_wav(decoded, sr)
+    sizes = list(srv.batcher.observed_batches)
+    res = {"counts": counts, "warmup_s": warm_s, "latency": _latencies(lat, metrics),
+           "batcher": metrics.get("batcher"), "batches": sizes, "round_ms": round_ms,
+           "replies_equal": equal, "codes_equal": codes_equal, "decode_equal": decode_equal,
+           "errors": [bad[0], oversize[0]]}
+    _print_serving("snac-24k http", res, card)
+    print(f"    snac-24k http: each round of 4 requests took {[round(t, 1) for t in round_ms]} "
+          f"ms on {card}")
+    phase("snac http", counts == want and equal == len(bodies) and sizes == [4] * HTTP_ROUNDS
+          and metrics["batcher"]["max_batch_seen"] == 4 and codes_equal and decode_equal
+          and bad[0] == 400 and oversize[0] == 413,
+          f"{len(bodies)} concurrent 10 s /roundtrip requests in {batches} batches {sizes} "
+          f"(/metrics max_batch_seen {metrics['batcher']['max_batch_seen']}); replies equal "
+          f"to the direct forward of the stacked batch {equal}/{len(bodies)}; /encode codes "
+          f"== model.encode: {codes_equal}; /decode == model.decode: {decode_equal}; bad body "
+          f"{bad[0]}, oversize {oversize[0]}; launches {counts} == {want}; warm-up "
+          f"{warm_s:.2f} s on {card}")
+    return res
+
+
+def _stream_local(model, audio: np.ndarray, chunk: int, blocks) -> np.ndarray:
+    """A local roundtrip session pair with the server's block_hops: the PCM
+    of ``audio`` pushed ``chunk`` samples at a time."""
+    from neuralcodecs_tpu_torch.models.encodec import StreamingDecoder, StreamingEncoder
+
+    enc = StreamingEncoder(model, block_hops=blocks)
+    dec = StreamingDecoder(model, block_hops=blocks)
+    return np.concatenate([dec.push(enc.push(audio[o: o + chunk]))[0, :, 0].cpu().numpy()
+                           for o in range(0, audio.size, chunk)])
+
+
+def phase_encodec_http(enc, card: str) -> dict:
+    """Encodec-24k behind the HTTP server and, on the same device lock, the
+    TCP streaming server (`serve --stream-port`), at the same time: four
+    roundtrip sessions push 10 s each in 8-hop chunks from four threads
+    while two 10 s /roundtrip requests run; each session's f32 PCM equals a
+    local session pair's on the same pushes and block_hops, bit for bit
+    (sessions in threads, interleaved on one lock and one stream, stay
+    isolated, kernel 3's counter included), and each /roundtrip reply the
+    direct forward of its stacked batch. Then an encode session piped into a
+    decode session gives the same audio, and /compress?lm=1 (the LM from the
+    model cache) gives model.compress(use_lm=True)'s bytes on the same card,
+    /decompress its decode. Kernels 1 and 3 launch from the servers'
+    threads."""
+    from neuralcodecs_tpu_torch.cli.serve import CodecServer, _array_to_wav, _wav_to_array
+    from neuralcodecs_tpu_torch.cli.stream_serve import StreamClient, StreamingCodecServer
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    sr, hop, n_q = enc.config.sample_rate, enc.encoder.hop_length, enc._n_q()
+    chunk, blocks = 8 * hop, (8, 1)
+    rng = np.random.default_rng(SEED + 12)
+    audios = [(0.3 * rng.standard_normal(10 * sr)).astype(np.float32) for _ in range(4)]
+    bodies = [_array_to_wav((0.3 * rng.standard_normal(10 * sr)).astype(np.float32), sr)
+              for _ in range(2)]
+    srv = CodecServer(enc, "encodec", port=0, batch_window_ms=HTTP_WINDOW_MS, max_batch=2)
+    tcp = StreamingCodecServer(enc, port=0, device_lock=srv._device_lock, block_hops=blocks)
+    t0 = time.perf_counter()
+    srv.warmup(lengths_s=(10.0,))
+    tcp.warmup()
+    warm_s = time.perf_counter() - t0
+    stacked, forward = _record_batches(srv)
+    srv.start_background()
+    tcp.start_background()
+    lat: dict = {}
+    clients = [_HttpClient(srv.port, lat) for _ in range(2)]
+
+    def session(audio):
+        cli = StreamClient("127.0.0.1", tcp.port, "roundtrip", chunk)
+        outs, walls = [], []
+        for o in range(0, audio.size, chunk):
+            t = time.perf_counter()
+            outs.append(np.frombuffer(cli.push(audio[o: o + chunk]), "<f4"))
+            walls.append(time.perf_counter() - t)
+        if cli.close() != b"":
+            raise PhaseError("stream session: no closing frame")
+        return np.concatenate(outs), walls
+
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        results = _concurrently(*[functools.partial(session, a) for a in audios],
+                                *[functools.partial(c.post, "/roundtrip", b)
+                                  for c, b in zip(clients, bodies)])
+        sessions, replies = results[:4], results[4:]
+        ce = StreamClient("127.0.0.1", tcp.port, "encode", chunk)
+        cd = StreamClient("127.0.0.1", tcp.port, "decode", 0)
+        piped = []
+        for o in range(0, audios[0].size, chunk):
+            raw = ce.push(audios[0][o: o + chunk])
+            f = struct.unpack(">II", raw[:8])
+            frame = np.frombuffer(raw[8:], ">i4").reshape(f).astype(np.int32)
+            piped.append(np.frombuffer(cd.push_codes(frame), "<f4"))
+        ce.close(), cd.close()
+        piped = np.concatenate(piped)
+        lm_status, blob = clients[0].post("/compress?lm=1", bodies[0])
+        dec_status, dec_body = clients[1].post("/decompress", blob)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        metrics = clients[0].get_json("/metrics")
+    finally:
+        for c in clients:
+            c.close()
+        srv.shutdown()
+        tcp.shutdown()
+    hops = audios[0].size // hop
+    steps = len(_decompose_pushes([(o, min(o + 8, hops)) for o in range(0, hops, 8)], blocks))
+    forwards = len(stacked)
+    # a roundtrip sub-step: n_q codebook launches, 2 + 2 LSTM layers; an
+    # encode step n_q + 2, a decode step 2; compress encodes, decompress decodes
+    want = {**_NO_LAUNCHES,
+            "codebook_argmin": n_q * (4 * steps + steps + forwards + 1),
+            "lstm_scan": 4 * 4 * steps + 2 * steps + 2 * steps + 4 * forwards + 2 + 2}
+    local = [_stream_local(enc, a, chunk, blocks) for a in audios]
+    sessions_equal = sum(np.array_equal(pcm, ref) for (pcm, _), ref in zip(sessions, local))
+    piped_equal = np.array_equal(piped, local[0])
+    equal, batches = _batched_replies_equal(stacked, forward, bodies, replies, sr)
+    x0 = torch.as_tensor(_wav_to_array(bodies[0])[0], device=DEVICE)
+    lm = enc.get_language_model(download=False)
+    direct = enc.compress(x0, use_lm=True, lm=lm)
+    compress_equal = lm_status == 200 and blob == direct
+    decompress_equal = dec_status == 200 and dec_body == _array_to_wav(
+        enc.decompress(direct, lm=lm)[0].cpu().numpy(), sr)
+    walls = [w * 1e3 for _, ws in sessions for w in ws]
+    res = {"counts": counts, "warmup_s": warm_s, "latency": _latencies(lat, metrics),
+           "batcher": metrics.get("batcher"), "stream_push_ms_p50": _pct(walls, 50),
+           "stream_push_ms_p90": _pct(walls, 90), "pushes": len(walls),
+           "sessions_equal": sessions_equal, "piped_equal": piped_equal,
+           "replies_equal": equal, "compress_lm_equal": compress_equal,
+           "decompress_equal": decompress_equal, "ecdc_lm_bytes": len(blob)}
+    _print_serving("encodec-24k http", res, card)
+    print(f"    encodec-24k tcp: 4 sessions x {len(walls) // 4} pushes of {chunk} samples "
+          f"({chunk / sr * 1e3:.1f} ms) beside 2 /roundtrip requests: a push's client wall "
+          f"p50 {res['stream_push_ms_p50']:.2f} / p90 {res['stream_push_ms_p90']:.2f} ms on "
+          f"{card}")
+    phase("encodec http + stream", counts == want and sessions_equal == 4 and piped_equal
+          and equal == len(bodies) and compress_equal and decompress_equal,
+          f"4 TCP sessions ({steps} sub-steps each) equal to local sessions bit for bit: "
+          f"{sessions_equal}/4; encode -> decode piped == local: {piped_equal}; 2 concurrent "
+          f"/roundtrip replies in {batches} batch(es) equal to the direct forward: "
+          f"{equal}/2; /compress?lm=1 == model.compress(use_lm=True) ({len(blob)} B): "
+          f"{compress_equal}; /decompress == decompress: {decompress_equal}; launches "
+          f"{counts} == {want}; warm-up {warm_s:.2f} s on {card}")
+    return res
+
+
+def phase_dac_http(dac, card: str) -> dict:
+    """DAC-44k behind the HTTP server (batching off): two 10 s /roundtrip
+    requests equal the direct round trip, /compress gives dac_file_bytes of
+    model.encode's codes, /decompress of those bytes equals from_codes.
+    Kernels 1 and 2b launch from the server's threads."""
+    from neuralcodecs_tpu_torch.cli.serve import CodecServer, _array_to_wav, _wav_to_array
+    from neuralcodecs_tpu_torch.models.dac.dacfile import dac_file_bytes
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    sr = dac.config.sample_rate
+    rng = np.random.default_rng(SEED + 13)
+    bodies = [_array_to_wav((0.3 * rng.standard_normal(10 * sr)).astype(np.float32), sr)
+              for _ in range(2)]
+    srv = CodecServer(dac, "dac", port=0, batch_window_ms=0)
+    t0 = time.perf_counter()
+    srv.warmup(lengths_s=(10.0,))
+    warm_s = time.perf_counter() - t0
+    srv.start_background()
+    lat: dict = {}
+    client = _HttpClient(srv.port, lat)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        replies = [client.post("/roundtrip", b) for b in bodies]
+        c_status, blob = client.post("/compress", bodies[0])
+        d_status, wav = client.post("/decompress", blob)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        metrics = client.get_json("/metrics")
+    finally:
+        client.close()
+        srv.shutdown()
+    n_enc, n_dec = len(_residual_units(dac.encoder)), len(_residual_units(dac.decoder))
+    n_q = dac.config.n_codebooks
+    want = {**_NO_LAUNCHES, "codebook_argmin": n_q * 3,
+            "fused_residual_unit_dense": (n_enc + n_dec) * 2 + n_enc + n_dec}
+    xs = [_wav_to_array(b)[0][0] for b in bodies]
+    roundtrip_equal = sum(s == 200 and w == _array_to_wav(dac.process_audio(x, sr), sr)
+                          for (s, w), x in zip(replies, xs))
+    codes = dac.encode(xs[0])[1].cpu().numpy()
+    compress_equal = c_status == 200 and blob == dac_file_bytes([codes], dac.config)
+    decompress_equal = d_status == 200 and wav == _array_to_wav(
+        dac.from_codes(codes)[0].cpu().numpy(), sr)
+    res = {"counts": counts, "warmup_s": warm_s, "latency": _latencies(lat, metrics),
+           "roundtrip_equal": roundtrip_equal, "compress_equal": compress_equal,
+           "decompress_equal": decompress_equal, "dac_bytes": len(blob)}
+    _print_serving("dac-44k http", res, card)
+    phase("dac http", counts == want and roundtrip_equal == 2 and compress_equal
+          and decompress_equal,
+          f"2 x 10 s /roundtrip == the direct round trip: {roundtrip_equal}/2; /compress == "
+          f"dac_file_bytes of model.encode ({len(blob)} B): {compress_equal}; /decompress == "
+          f"from_codes: {decompress_equal}; launches {counts} == {want}; warm-up "
+          f"{warm_s:.2f} s on {card}")
+    return res
+
+
+def phase_dia_http(dia, card: str) -> dict:
+    """The full Dia 1.6B (f32, loaded from its export, vocoded by the DAC-44k
+    export) behind the HTTP server with --dia-token-bucket 1024 and
+    micro-batching up to 4: four concurrent single-text /tts requests of
+    max_tokens 64 (cut from the served 512 for the time budget) coalesce
+    into one generate, and each WAV equals a direct generate of the four
+    texts in the order the batcher stacked them (a row's noise follows its
+    slot); /tts/stream of one text (segments of 32) equals the direct
+    generate_stream's PCM, and its time to the first audio is recorded.
+    Kernel 2b launches from the batcher's and the handler's threads."""
+    from neuralcodecs_tpu_torch.cli.serve import CodecServer, _array_to_wav, _streaming_wav_header
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    dac, sr = dia.dac, dia.config.sample_rate
+    srv = CodecServer(dia, "dia", port=0, batch_window_ms=200.0, max_batch=4,
+                      dia_token_bucket=DIA_HTTP_BUCKET)
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    srv.start_background()
+    lat: dict = {}
+    clients = [_HttpClient(srv.port, lat) for _ in range(4)]
+    stream_kw = dict(max_tokens=DIA_HTTP_TOKENS, segment_tokens=32)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with _CallCount(dia, ("generate",)) as gen_calls, \
+                _CallCount(dac, ("from_codes",)) as vocodes:
+            replies = _concurrently(*[functools.partial(
+                c.post, "/tts", json.dumps({"text": t, "max_tokens": DIA_HTTP_TOKENS}).encode())
+                for c, t in zip(clients, DIA_TEXTS)])
+            conn = clients[0].conn
+            t_req = time.perf_counter()
+            conn.request("POST", "/tts/stream", body=json.dumps(
+                {"text": DIA_TEXTS[0], **stream_kw}).encode())
+            resp = conn.getresponse()
+            first = resp.read(44 + 2)
+            first_audio_s = time.perf_counter() - t_req
+            stream_blob = first + resp.read()
+            stream_s = time.perf_counter() - t_req
+            lat.setdefault("/tts/stream", []).append(stream_s)
+            stream_status = resp.status
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        metrics = clients[1].get_json("/metrics")
+    finally:
+        for c in clients:
+            c.close()
+        srv.shutdown()
+    want = {**_NO_LAUNCHES, "fused_residual_unit_dense":
+            len(_residual_units(dac.decoder)) * vocodes.calls["from_codes"]}
+    (args, kw, _), = gen_calls.records["generate"]
+    stacked = list(args[0])
+    direct = dict(zip(stacked, dia.generate(stacked, **kw)))
+    equal = sum(s == 200 and wav == _array_to_wav(direct[t], sr)
+                for t, (s, wav) in zip(DIA_TEXTS, replies))
+    chunks = [c for _, c in dia.generate_stream(DIA_TEXTS[0], seed=0,
+                                                pad_tokens_to=DIA_HTTP_BUCKET, **stream_kw)]
+    want_pcm = b"".join((np.clip(c, -1.0, 1.0) * 32767.0).astype("<i2").tobytes() for c in chunks)
+    stream_equal = (stream_status == 200 and stream_blob[:44] == _streaming_wav_header(sr)
+                    and stream_blob[44:] == want_pcm and len(want_pcm) > 0)
+    sizes = list(srv.batcher.observed_batches)
+    res = {"counts": counts, "warmup_s": warm_s, "latency": _latencies(lat, metrics),
+           "batcher": metrics.get("batcher"), "batches": sizes, "stacked": stacked,
+           "generate_kwargs": kw, "replies_equal": equal, "stream_equal": stream_equal,
+           "stream_first_audio_s": first_audio_s, "stream_s": stream_s,
+           "vocodes": vocodes.calls["from_codes"]}
+    _print_serving("dia-1.6b http", res, card)
+    print(f"    dia-1.6b http /tts/stream: first audio after {first_audio_s:.2f} s, whole "
+          f"stream {stream_s:.2f} s ({DIA_HTTP_TOKENS} tokens in segments of 32) on {card}")
+    phase("dia http", counts == want and sizes == [4] and equal == 4 and stream_equal,
+          f"4 concurrent /tts (max_tokens {DIA_HTTP_TOKENS}, bucket {DIA_HTTP_BUCKET}) in "
+          f"batches {sizes}, WAVs equal to a direct generate of {stacked}: {equal}/4; "
+          f"/tts/stream == generate_stream: {stream_equal}, first audio {first_audio_s:.2f} s; "
+          f"launches {counts} == {want}; warm-up {warm_s:.2f} s on {card}")
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2747,6 +3203,7 @@ def main() -> int:
             phase_golden()
             phase_card_vs_cpu(model)
             serve = phase_serve(model, info["smi"])
+            snac_http = phase_snac_http(model, info["smi"])
             lstm = phase_lstm(enc, gen)
             phase_ecdc_golden()
             phase_encodec_card_vs_cpu(enc)
@@ -2755,6 +3212,7 @@ def main() -> int:
             stream = phase_encodec_stream(enc, gen, info["smi"])
             loader["lm_cache"] = phase_lm_cache(enc, tmp, info["smi"])
             lm_coding = phase_ecdc_lm(enc, model48, info["smi"])
+            enc_http = phase_encodec_http(enc, info["smi"])
             env = phase_envelope(gen)
             bq = phase_biquad(gen)
             dsp, resampled = phase_dsp_pipeline(info["smi"])
@@ -2763,6 +3221,7 @@ def main() -> int:
             golden_dac, golden = phase_dac_golden()
             dac_cmp = phase_dac_card_vs_cpu(dac)
             dac_serve = phase_dac_serve(dac, info["smi"])
+            dac_http = phase_dac_http(dac, info["smi"])
             phase_dac_file(golden_dac, golden, tmp)
             del dac
             t_dia = time.time()
@@ -2776,7 +3235,8 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    paths = (serve, enc_serve, enc48, stream, lm_coding, dsp, loud, dac_serve, dia_serve)
+    paths = (serve, snac_http, enc_serve, enc48, stream, lm_coding, enc_http, dsp, loud,
+             dac_serve, dac_http, dia_serve, dia_serve["http"])
     launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
     lstm["rows"] += stream["lstm_rows"]
     cb["rows"] += stream["codebook_rows"]
@@ -2793,7 +3253,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": info, "seconds": time.time() - t_start, "build": built, "codebook": cb,
-             "resunit": ru, "serve": serve, "lstm": lstm, "encodec_serve": enc_serve,
+             "resunit": ru, "serve": serve, "snac_http": snac_http, "encodec_http": enc_http,
+             "dac_http": dac_http, "lstm": lstm, "encodec_serve": enc_serve,
              "encodec_48k": enc48, "encodec_stream": stream, "ecdc_lm": lm_coding, "envelope": env,
              "biquad": bq, "dsp_pipeline": dsp, "loudness": loud, "resunit_dense": ru_dense,
              "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "loader": loader,

@@ -293,10 +293,27 @@ class DAC(CodecWeights, nn.Module):
 
     def process_audio(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
         """Resample one clip to the model's rate on its device if needed, then
-        round-trip it: [T] in, [T'] out."""
-        audio = torch.as_tensor(np.asarray(audio, dtype=np.float32), device=self.device)
+        round-trip it: [T] in (an array or a tensor), numpy [T'] out. With
+        diagnostics on (``diagnostics.set_diagnostics``) it runs staged,
+        encode then decode, so the context sees each phase's time, codes and
+        latents."""
+        from neuralcodecs_tpu_torch.diagnostics.context import get_diagnostics
+
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
         if sample_rate != self.config.sample_rate:
             audio = resample_poly(audio, sample_rate, self.config.sample_rate)
+        diag = get_diagnostics()
+        if diag.enabled:
+            diag.log_tensor("dac", "input", audio)
+            with diag.track_scope("dac.encode"):
+                z_q, codes, latents, _, _ = self.encode(audio)
+                z_q = z_q.cpu().numpy()
+            diag.log_tensor("dac.encode", "codes", codes)
+            diag.log_tensor("dac.encode", "latents", latents)
+            with diag.track_scope("dac.decode"):
+                out = self.decode(z_q).cpu().numpy()
+            diag.log_tensor("dac.decode", "audio_out", out)
+            return out[0, : audio.shape[-1]]
         return self.forward(audio)["audio"][0].cpu().numpy()
 
 

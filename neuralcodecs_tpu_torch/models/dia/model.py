@@ -207,6 +207,15 @@ def _bucket(requested: int, ceiling: int) -> int:
     return min(pad, max(ceiling, requested))
 
 
+def check_compute_dtype(compute_dtype: torch.dtype) -> None:
+    """Raise NotImplementedError for a compute dtype the port lacks: only
+    f32 and the f64 reference mode are ported."""
+    if compute_dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"Dia compute_dtype {compute_dtype}: only torch.float32 (and torch.float64, "
+            "the reference mode) is ported; the bf16 modes are ROADMAP section 1 item 4")
+
+
 class Dia(nn.Module):
     """Public Dia TTS model.
 
@@ -225,10 +234,7 @@ class Dia(nn.Module):
                  device: torch.device | str | None = None, seed: int = 0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if compute_dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"Dia compute_dtype {compute_dtype}: only torch.float32 (and torch.float64, "
-                "the reference mode) is ported; the bf16 modes are ROADMAP section 1 item 4")
+        check_compute_dtype(compute_dtype)
         self.config = config or DiaConfig()
         self.compute_dtype = compute_dtype
         device = resolve_device(device)

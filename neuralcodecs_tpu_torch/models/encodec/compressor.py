@@ -152,7 +152,7 @@ def _lm_decode_entries(lm, payloads: list[bytes], lengths: list[int],
     return out
 
 
-def _build_stream(model, x: np.ndarray, frames, use_lm: bool,
+def _build_stream(model, x, frames, use_lm: bool,
                   payloads: list[bytes] | None, lmb: int) -> bytes:
     """One .ecdc container from a waveform's encoded frames (+ LM payloads)."""
     out = io.BytesIO()
@@ -189,8 +189,11 @@ def _build_stream(model, x: np.ndarray, frames, use_lm: bool,
     return out.getvalue()
 
 
-def _check_input(model, audio) -> np.ndarray:
-    x = np.asarray(audio, np.float32)
+def _check_input(model, audio):
+    """One waveform as [C, T] f32: a tensor stays a tensor on its device
+    (a server's prepared audio), anything else becomes a numpy array."""
+    x = (audio.to(torch.float32) if isinstance(audio, torch.Tensor)
+         else np.asarray(audio, np.float32))
     if x.ndim == 1:
         x = x[None, :]
     if x.ndim != 2:

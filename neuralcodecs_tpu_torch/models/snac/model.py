@@ -271,10 +271,26 @@ class SNAC(CodecWeights, nn.Module):
         return self._decode_fn(codes, self._noise_generator(generator))[:, 0, :]
 
     def process_audio(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
-        """Resample to the model's rate if needed, then round-trip one clip."""
-        audio = torch.as_tensor(np.asarray(audio, dtype=np.float32), device=self.device)
+        """Resample to the model's rate if needed, then round-trip one clip
+        ([T], an array or a tensor, taken to the model's device; numpy out).
+        With diagnostics on (``diagnostics.set_diagnostics``) it runs staged,
+        encode then decode, so the context sees each phase's time and codes."""
+        from neuralcodecs_tpu_torch.diagnostics.context import get_diagnostics
+
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
         if sample_rate != self.config.sample_rate:
             audio = linear_resample(audio, sample_rate, self.config.sample_rate)
+        diag = get_diagnostics()
+        if diag.enabled:
+            diag.log_tensor("snac", "input", audio)
+            with diag.track_scope("snac.encode"):
+                codes = [c.cpu().numpy() for c in self.encode(audio)]
+            for i, c in enumerate(codes):
+                diag.log_tensor("snac.encode", f"codes_{i}", c)
+            with diag.track_scope("snac.decode"):
+                out = self.decode(codes).cpu().numpy()
+            diag.log_tensor("snac.decode", "audio_out", out)
+            return out[0, : audio.shape[-1]]
         out, _ = self.forward(audio)
         return (out[0] if out.dim() == 2 else out).cpu().numpy()
 

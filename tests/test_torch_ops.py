@@ -434,7 +434,9 @@ LOADER_MODULES = ("cache", "events", "export", "files", "importer", "interfaces"
 
 def test_port_imports_without_jax():
     """The facade, every core module of the loader stack and every other
-    module of the port import with no JAX and nothing of the JAX package."""
+    module of the port import with no JAX and nothing of the JAX package;
+    the CLI parses and runs a command, and an HTTP and a TCP streaming server
+    start on a tiny model and answer, still with no JAX."""
     code = ("import sys, pkgutil, importlib, neuralcodecs_tpu_torch as p\n"
             "from neuralcodecs_tpu_torch import (load_model, load_snac, load_dac, load_encodec,\n"
             "    load_dia, load_pretrained, save_pretrained, load_zoo_model, zoo_models,\n"
@@ -444,6 +446,39 @@ def test_port_imports_without_jax():
             "assert registry.architectures() == ['dac', 'dia', 'encodec', 'snac']\n"
             "for m in pkgutil.walk_packages(p.__path__, 'neuralcodecs_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "import http.client, json\n"
+            "from neuralcodecs_tpu_torch.cli.main import build_parser, main\n"
+            "from neuralcodecs_tpu_torch.cli.serve import CodecServer\n"
+            "from neuralcodecs_tpu_torch.cli.stream_serve import StreamClient, StreamingCodecServer\n"
+            "from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig\n"
+            "from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig\n"
+            "args = build_parser().parse_args(['serve', '--codec', 'snac', '--device', 'cpu'])\n"
+            "assert args.device == 'cpu' and args.dtype == 'f32'\n"
+            "out = __import__('io').StringIO()\n"
+            "with __import__('contextlib').redirect_stdout(out):\n"
+            "    assert main(['zoo']) == 0\n"
+            "assert 'snac_24khz' in out.getvalue()\n"
+            "snac = SNAC(SNACConfig(sampling_rate=16000, encoder_dim=8, encoder_rates=[2, 4],\n"
+            "    decoder_dim=32, decoder_rates=[4, 2], attn_window_size=None, codebook_size=32,\n"
+            "    codebook_dim=4, vq_strides=[2, 1], noise=False, depthwise=False), device='cpu')\n"
+            "srv = CodecServer(snac, 'snac', port=0)\n"
+            "srv.warmup()\n"
+            "srv.start_background()\n"
+            "conn = http.client.HTTPConnection('127.0.0.1', srv.port, timeout=60)\n"
+            "conn.request('GET', '/healthz')\n"
+            "assert json.loads(conn.getresponse().read())['status'] == 'ok'\n"
+            "srv.shutdown()\n"
+            "enc = Encodec(EncodecConfig(sampling_rate=16000, channels=1, bandwidth=80.0,\n"
+            "    target_bandwidths=[20.0, 80.0], codebook_size=32, codebook_dim=16, hidden_size=16,\n"
+            "    num_filters=8, num_lstm_layers=2, num_residual_layers=1, upsampling_ratios=[4, 2],\n"
+            "    use_causal_conv=True, norm_type='weight_norm'), device='cpu')\n"
+            "tcp = StreamingCodecServer(enc, port=0)\n"
+            "tcp.warmup()\n"
+            "tcp.start_background()\n"
+            "cli = StreamClient('127.0.0.1', tcp.port, 'roundtrip', 64)\n"
+            "assert len(cli.push(__import__('numpy').zeros(64, 'float32'))) == 4 * 64\n"
+            "assert cli.close() == b''\n"
+            "tcp.shutdown()\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'neuralcodecs_tpu.'))"
             " or m == 'neuralcodecs_tpu']\n"
             "assert not bad, bad\n"
