@@ -44,7 +44,22 @@ unit, 3xTF32) against the plain chain at every unit shape of a 10 s
 stream, reproduces the frozen DAC golden and its .dac bytes, checks
 full-width DAC-44k against itself on the CPU, then serves a few requests
 through it and times its round trip with the kernels and with the plain
-versions. Dia: greedy generations from the tiny goldens' weights against the
+versions. DAC training (phase_dac_train): a seeded full-width DAC-44k with
+DACDiscriminator() at its defaults trains on a batch of 8 x 0.5 s from
+AudioCropDataset (seeded WAVs, through prefetch) through make_gan_train_step
+and make_train_step, under torch.enable_grad(): the first GAN step's six
+losses (rtol 1e-4) and every gradient of G and D (per tensor 1e-3 of its
+norm) with the kernels against the plain versions from the same weights,
+codes that differ only at top-2 gaps < 1e-5, 5-step loss trajectories
+under SGD (rtol 1e-3), the AdamW step's time, audio seconds trained a
+second, peak memory, launches a step, idle and backward shares by
+torch.profiler, the units' kept weight splits equal to fresh ones after 15
+in-place AdamW updates, the plain step for scale, the generator-only step with and
+without remat (equal gradients), kernel 2b's training form and written-out
+backward at the batch's 24 unit shapes beside its inference form, and
+kernels 2a, 3, 4 and 5 raising under grad. Its model's seed is the first of
+TRAIN_SEEDS where the mel loss's gradient is stable against one ulp of the
+output (a stable reference is what the gradient bar needs). Dia: greedy generations from the tiny goldens' weights against the
 port on the CPU and against dia_ladder_golden's codes (the int8 KV cache,
 blocked read and integer dots); DiaConfig() widths at 2 + 2 layers against
 the CPU in f32 and f64; then the full 1.61 B model (seeded, f32) serving 4
@@ -830,7 +845,8 @@ def phase_encodec_card_vs_cpu(model) -> None:
 def _plain_kernels():
     """Swap the plain versions in where the codecs call the LSTM, codebook
     and residual-unit kernels, for a kernel-vs-plain timing of the same
-    round trip."""
+    round trip (in grad mode, autograd through the plain chain in place of
+    the dense unit's Function)."""
     from neuralcodecs_tpu_torch.models import layers
     from neuralcodecs_tpu_torch.models.encodec import seanet
     from neuralcodecs_tpu_torch.ops import vq
@@ -1996,6 +2012,441 @@ def phase_dac_file(model, g, tmp: Path) -> None:
           f"encode_to_file == the CPU's dac_file_bytes of the golden codes ({len(want)} B): "
           f"{same}; decode_from_file vs from_codes within rtol 1e-5/atol 1e-6: {close} "
           f"(max|err| {float((from_file - direct).abs().max()):.2e})")
+
+
+# ------------------------------------------------------- DAC training phase
+
+
+TRAIN_STEPS = 5          # GAN steps a path in the kernel-vs-plain trajectories
+# the trajectories' optimizer: SGD, whose step is lr · g. Adam normalises
+# each element's step, so an element whose gradient is near zero moves by a
+# whole lr in a direction set by rounding, and two paths that agree to 1e-4
+# in their gradients drift apart step by step (default AdamW: the losses
+# 2.3e-3 apart by step 5, the first step's within 2.6e-7)
+TRAIN_SGD_LR = 1e-3
+TRAIN_TIMED = 10         # timed GAN steps, after 2 warm-up steps
+# candidate seeds of the trained DAC-44k: the first whose mel-loss gradient is
+# stable (see _mel_sensitivity) is used
+TRAIN_SEEDS = (SEED + 20, SEED + 21, SEED + 22, SEED + 23)
+MEL_STABLE = 1e-4
+TRAIN_GRAD_BAR = 1e-3    # ‖g_kernel − g_plain‖ / ‖g_plain‖ per tensor
+
+
+def _train_batch(tmp: Path, sr: int, hop: int) -> tuple[torch.Tensor, float]:
+    """One batch of AudioCropDataset's defaults (8 x 0.5 s) from four seeded
+    3 s WAVs, through prefetch, padded to the hop: ([8, 22528, 1] on the
+    card, seconds of audio in the batch)."""
+    import wave
+
+    from neuralcodecs_tpu_torch.parallel import AudioCropDataset, prefetch
+
+    rng = np.random.default_rng(SEED + 30)
+    wav_dir = tmp / "train_wavs"
+    wav_dir.mkdir()
+    t = np.arange(3 * sr) / sr
+    for i in range(4):
+        tone = 0.3 * np.sin(2 * np.pi * rng.uniform(80, 2000) * t)
+        data = np.clip(tone + 0.05 * rng.standard_normal(t.shape), -1, 1)
+        with wave.open(str(wav_dir / f"clip{i}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(sr)
+            f.writeframes((data * 32767).astype("<i2").tobytes())
+    dataset = AudioCropDataset(wav_dir, sr, seed=SEED, loop=False)
+    batch = next(prefetch(iter(dataset)))
+    seconds = batch.shape[0] * batch.shape[1] / sr
+    padded = np.pad(batch, ((0, 0), (0, -batch.shape[1] % hop), (0, 0)))
+    return torch.from_numpy(padded).to(DEVICE), seconds
+
+
+def _mel_sensitivity(model, audio: torch.Tensor) -> float:
+    """‖Δg‖ / ‖g‖ of the mel loss's gradient at the model's output when that
+    output moves by one ulp. Where it is large (mel bins at the FFT's
+    rounding floor, whose log10 gradient amplifies f32 rounding), two paths
+    that differ by rounding cannot agree to TRAIN_GRAD_BAR in their gradients
+    whatever their kernels do."""
+    from neuralcodecs_tpu_torch.losses import mel_spectrogram_loss
+    from neuralcodecs_tpu_torch.parallel.train import channels_first
+
+    real = audio[..., 0]
+    with torch.no_grad():
+        fake = model._forward_fn(channels_first(audio), None)["audio"][:, 0]
+
+    def grad(x):
+        x = x.clone().requires_grad_()
+        with torch.enable_grad():
+            loss = mel_spectrogram_loss(x, real, model.config.sample_rate, n_mels=(80, 20),
+                                        window_lengths=(512, 128))
+            return torch.autograd.grad(loss, x)[0]
+
+    g = grad(fake)
+    g_ulp = grad(torch.nextafter(fake, torch.full_like(fake, math.inf)))
+    return float((g_ulp - g).norm() / g.norm())
+
+
+def _snapshot(module) -> dict:
+    return {k: p.detach().clone() for k, p in module.state_dict().items()}
+
+
+def _grads(*modules) -> dict:
+    return {f"{i}.{k}": p.grad.detach().clone() for i, m in enumerate(modules)
+            for k, p in m.named_parameters()}
+
+
+def _gan_run(model, disc, start: tuple, audio: torch.Tensor, steps: int) -> tuple[list, dict]:
+    """``steps`` GAN steps from the weights ``start``, SGD (TRAIN_SGD_LR) on
+    both sides: (each step's metrics as floats, the first step's
+    gradients)."""
+    from neuralcodecs_tpu_torch.parallel import make_gan_train_step
+
+    model.load_state_dict(start[0])
+    disc.load_state_dict(start[1])
+    sgd = functools.partial(torch.optim.SGD, lr=TRAIN_SGD_LR)
+    init_fn, step_fn = make_gan_train_step(model, disc, sgd, sgd)
+    states, metrics, first = init_fn(), [], None
+    for i in range(steps):
+        states, m = step_fn(states, audio)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first = _grads(model, disc)
+    return metrics, first
+
+
+def _code_flips(model, audio: torch.Tensor) -> dict:
+    """The codes of one forward with the kernels against the plain versions
+    at the same weights; each differing code's top-2 score gap (plain)."""
+    from neuralcodecs_tpu_torch.parallel.train import channels_first
+
+    x = channels_first(audio)
+    with torch.no_grad():
+        out = model._forward_fn(x, None)
+        with _plain_kernels():
+            want = model._forward_fn(x, None)
+    differ = torch.nonzero(out["codes"] != want["codes"]).tolist()
+    gaps = _dac_top2_gaps(model, want["latents"].transpose(1, 2))
+    flips = []
+    for b, stage, f in differ:
+        frame = b * out["codes"].shape[-1] + f
+        flips.append({"row": b, "stage": stage, "frame": f,
+                      "kernel": int(out["codes"][b, stage, f]),
+                      "plain": int(want["codes"][b, stage, f]),
+                      "gap": float(gaps[stage][frame])})
+        print(f"    dac train codes: row {b} stage {stage} frame {f}: kernel "
+              f"{flips[-1]['kernel']}, plain {flips[-1]['plain']}, top-2 gap "
+              f"{flips[-1]['gap']:.3e}")
+    return {"codes": int(out["codes"].numel()), "flips": flips}
+
+
+def _stale_splits(model, audio: torch.Tensor) -> list:
+    """After one more forward in grad mode, the dense units' weights whose
+    kept TF32 split (resunit._packed) differs from a fresh split of the
+    weight as it is now."""
+    from neuralcodecs_tpu_torch.ops.kernels.resunit import (
+        pack_conv_weights, pack_pointwise_weights)
+    from neuralcodecs_tpu_torch.parallel.train import channels_first
+
+    with torch.enable_grad():
+        model._forward_fn(channels_first(audio), None)
+    stale = []
+    for i, unit in enumerate(_residual_units(model)):
+        _, conv, _, pointwise = unit.block
+        for w, pack in ((conv.weight, pack_conv_weights),
+                        (pointwise.weight, pack_pointwise_weights)):
+            kept = getattr(w, "_nc_packed", (None, (None, None)))[1]
+            if not all(k is not None and torch.equal(k, f)
+                       for k, f in zip(kept, pack(w.detach()))):
+                stale.append((i, tuple(w.shape)))
+    return stale
+
+
+def _train_units(model, audio: torch.Tensor, gen: torch.Generator) -> dict:
+    """Kernel 2b at the 24 unit shapes of the training batch: the inference
+    form, the training form (out, h, z, y held to residual_unit_train_plain
+    within rtol 1e-4 / atol 1e-5) and the Function's backward (held to
+    autograd of the plain chain, ‖Δg‖ / ‖g‖ <= 1e-3 per input), each timed
+    by CUDA events; the plain chain's forward + backward beside them."""
+    from neuralcodecs_tpu_torch.ops.kernels.resunit import (
+        DenseResidualUnitFn, _dense_train_forward, fused_residual_unit, residual_unit_plain,
+        residual_unit_train_plain)
+
+    units = _residual_units(model)
+    with torch.no_grad():
+        lengths = _unit_lengths(model, audio.shape[1])
+    rows, bad = [], []
+    for unit, t in zip(units, lengths):
+        args = tuple(a.detach() for a in _unit_args(unit))
+        c, d = args[0].shape[1], unit.dilation
+        x = torch.randn(audio.shape[0], c, t, generator=gen, device=DEVICE)
+        g = torch.randn(x.shape, generator=gen, device=DEVICE)
+        with torch.no_grad():
+            got = _dense_train_forward(x, args, d)
+            want = residual_unit_train_plain(x, *args, dilation=d)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(got, want))
+        inputs = [x.clone().requires_grad_(), *(a.clone().requires_grad_() for a in args)]
+        with torch.enable_grad():
+            out = DenseResidualUnitFn.apply(*inputs, d)
+            dk = torch.autograd.grad(out, inputs, g)
+            out_p = residual_unit_plain(*inputs, dilation=d)
+            dp = torch.autograd.grad(out_p, inputs, g)
+        grad_err = max(float((a - b).norm() / b.norm()) for a, b in zip(dk, dp))
+        ok = ok and grad_err <= TRAIN_GRAD_BAR
+        with torch.no_grad():
+            infer_ms = time_ms(lambda: fused_residual_unit(x, *args, dilation=d), 10, 2)
+            train_ms = time_ms(lambda: _dense_train_forward(x, args, d), 10, 2)
+        with torch.enable_grad():
+            out = DenseResidualUnitFn.apply(*inputs, d)
+            bwd_ms = time_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True),
+                             5, 1)
+            plain_ms = time_ms(lambda: torch.autograd.grad(
+                residual_unit_plain(*inputs, dilation=d), inputs, g), 5, 1)
+        rows.append({"C": c, "dilation": d, "T": t, "B": x.shape[0], "inference_ms": infer_ms,
+                     "train_ms": train_ms, "backward_ms": bwd_ms,
+                     "plain_fwd_bwd_ms": plain_ms, "max_abs_err": max(errs),
+                     "grad_rel_err": grad_err})
+        if not ok:
+            bad.append((c, d, t, errs, grad_err))
+        print(f"    dac train unit C={c} d={d} T={t} B={x.shape[0]}: inference form "
+              f"{infer_ms:.3f} ms, training form {train_ms:.3f} ms, backward {bwd_ms:.3f} ms; "
+              f"plain forward + backward {plain_ms:.3f} ms; max|err| (out, h, z, y) "
+              f"{max(errs):.2e}, backward rel. err {grad_err:.2e}"
+              + ("" if ok else "  MISMATCH"))
+    total = {k: sum(r[k] for r in rows) for k in ("inference_ms", "train_ms", "backward_ms",
+                                                  "plain_fwd_bwd_ms")}
+    return {"rows": rows, "mismatches": bad, **total}
+
+
+def _no_backward_raises() -> dict:
+    """Kernels 2a, 3, 4 and 5, called on the card in grad mode with an input
+    that requires grad: each must raise, and launch nothing."""
+    from neuralcodecs_tpu_torch.models.layers import ResidualUnit
+    from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t
+    from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow
+    from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan
+    from neuralcodecs_tpu_torch.ops.kernels.resunit import fused_residual_unit
+
+    unit = ResidualUnit(64, dilation=3, groups=64).to(DEVICE)
+    h = 512
+    calls = {
+        "fused_residual_unit": lambda: fused_residual_unit(
+            torch.randn(1, 64, 1024, device=DEVICE, requires_grad=True), *_unit_args(unit),
+            dilation=3),
+        "lstm_scan": lambda: lstm_scan(
+            torch.randn(4, 1, 4 * h, device=DEVICE, requires_grad=True),
+            torch.randn(4 * h, h, device=DEVICE), torch.zeros(1, h, device=DEVICE),
+            torch.zeros(1, h, device=DEVICE)),
+        "envelope_follow": lambda: envelope_follow(
+            torch.rand(2, 1000, device=DEVICE, requires_grad=True), 0.5, 0.99),
+        "biquad_df2t": lambda: biquad_df2t(
+            torch.randn(2, 1000, device=DEVICE, requires_grad=True),
+            [((0.5, 0.2, 0.1), (1.0, -0.3, 0.1))]),
+    }
+    raised = {}
+    kernels.reset_launch_counts()
+    with torch.enable_grad():
+        for name, call in calls.items():
+            try:
+                call()
+                raised[name] = "returned"
+            except RuntimeError as e:
+                raised[name] = str(e) if "no backward" in str(e) else f"other error: {e}"
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ok = all("no backward" in v and not v.startswith("other") for v in raised.values())
+    phase("kernels without a backward raise under grad", ok and counts == _NO_LAUNCHES,
+          f"{ {k: ('raised' if 'no backward' in v else v) for k, v in raised.items()} }; "
+          f"launches {counts}")
+    return raised
+
+
+def _gen_step(model, start, audio: torch.Tensor, remat: bool) -> dict:
+    """make_train_step at ``remat``: the first step's gradients from the
+    weights ``start``, then ms a step (CUDA events, 3 after 1 warm-up) and
+    peak memory of a step."""
+    from neuralcodecs_tpu_torch.parallel import make_train_step
+
+    model.load_state_dict(start)
+    init_fn, step_fn = make_train_step(model, remat=remat)
+    state, loss = step_fn(init_fn(), audio)
+    grads = _grads(model)
+    state, _ = step_fn(state, audio)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(lambda: step_fn(state, audio), 3, 0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return {"loss": float(loss), "grads": grads, "ms": ms, "peak_gb": peak}
+
+
+def _step_profile(step, wall_ms: float, reps: int = 2) -> dict:
+    """torch.profiler over ``reps`` warm GAN steps: device ms a step, idle
+    share against the unprofiled wall time, and the shares of the device
+    time launched by the backward (autograd's evaluate_function ops) and
+    by the optimizers."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+        for _ in range(1 + reps):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    # device kernels only: the step's own ranges (ProfilerStep, user
+    # annotations) also appear on the device timeline and span the kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("ProfilerStep")]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    backward_ms = sum(e.device_time_total for e in events
+                      if e.key.startswith("autograd::engine::evaluate_function")) / 1e3 / reps
+    optim_ms = sum(e.device_time_total for e in events
+                   if e.key.startswith("Optimizer.step")) / 1e3 / reps
+    top = [(e.key, e.self_device_time_total / 1e3 / reps)
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]
+    return {"device_ms": device_ms, "idle": 1.0 - device_ms / wall_ms,
+            "backward_ms": backward_ms, "backward_share": backward_ms / device_ms,
+            "optimizer_ms": optim_ms, "optimizer_share": optim_ms / device_ms, "top": top}
+
+
+def phase_dac_train(tmp: Path, card: str, gen: torch.Generator) -> dict:
+    """DAC-44k GAN training at full width (DACConfig(), 76.6 M parameters,
+    with DACDiscriminator() at its defaults) on a batch of 8 x 0.5 s from
+    AudioCropDataset, through make_gan_train_step and make_train_step: the
+    first step's losses and every gradient with the kernels against the
+    plain versions from the same weights (codes that differ only at
+    near-ties), 5-step loss trajectories under SGD, timing, launches,
+    profile and peak memory under AdamW, the units' kept weight splits
+    equal to fresh ones after the optimizer's in-place updates, the generator-only step with and without remat, kernel 2b's
+    training form and backward at the batch's 24 unit shapes, and the
+    kernels without a backward raising under grad."""
+    from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
+    from neuralcodecs_tpu_torch.models.dac.discriminator import DACDiscriminator
+    from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.parallel import make_gan_train_step
+
+    t_phase = time.time()
+    cfg = DACConfig()
+    audio, seconds = _train_batch(tmp, cfg.sample_rate, cfg.hop_length)
+    tried = {}
+    for seed in TRAIN_SEEDS:
+        model = DAC(cfg, device=DEVICE, seed=seed)
+        tried[seed] = _mel_sensitivity(model, audio)
+        if tried[seed] < MEL_STABLE:
+            break
+    print(f"    dac train: mel-gradient sensitivity to one ulp of the output by seed "
+          f"{tried} (stable below {MEL_STABLE})")
+    if tried[seed] >= MEL_STABLE:
+        raise PhaseError(f"no candidate seed with a stable mel gradient: {tried}")
+    disc = DACDiscriminator(device=DEVICE, seed=SEED + 24)
+    n_g = sum(p.numel() for p in model.parameters())
+    n_d = sum(p.numel() for p in disc.parameters())
+    start = (_snapshot(model), _snapshot(disc))
+    res = {"seed": seed, "mel_sensitivity": tried, "params": n_g, "disc_params": n_d,
+           "batch": list(audio.shape), "audio_s": seconds}
+    with torch.enable_grad():
+        res["codes"] = _code_flips(model, audio)
+        # the main path: the kernel trajectory, counted
+        kernels.reset_launch_counts()
+        k_metrics, k_grads = _gan_run(model, disc, start, audio, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        with _plain_kernels():
+            p_metrics, p_grads = _gan_run(model, disc, start, audio, TRAIN_STEPS)
+        loss_err = max(abs(k[key] - p[key]) / abs(p[key]) for k, p in zip(k_metrics, p_metrics)
+                       for key in k)
+        first_err = max(abs(k_metrics[0][key] - p_metrics[0][key]) / abs(p_metrics[0][key])
+                        for key in k_metrics[0])
+        grad_errs = {key: float((k_grads[key] - g).norm() / g.norm())
+                     for key, g in p_grads.items()}
+        worst = max(grad_errs, key=grad_errs.get)
+        del k_grads, p_grads
+        flips_ok = all(f["gap"] < 1e-5 for f in res["codes"]["flips"])
+        want = {**_NO_LAUNCHES, "codebook_argmin": cfg.n_codebooks * TRAIN_STEPS,
+                "fused_residual_unit_dense": len(_residual_units(model)) * TRAIN_STEPS}
+        for i, (k, p) in enumerate(zip(k_metrics, p_metrics)):
+            print(f"    dac train step {i + 1}: kernels {k}; plain {p}")
+        res.update({"counts": counts, "kernel_metrics": k_metrics, "plain_metrics": p_metrics,
+                    "first_step_rel_err": first_err, "trajectory_rel_err": loss_err,
+                    "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst": worst,
+                    "grad_tensors": len(grad_errs)})
+        phase("dac train kernels vs plain",
+              first_err <= 1e-4 and grad_errs[worst] <= TRAIN_GRAD_BAR and loss_err <= 1e-3
+              and flips_ok and counts == want,
+              f"seed {seed}; first GAN step's 6 losses within {first_err:.2e} (<= 1e-4), "
+              f"{len(grad_errs)} gradient tensors (G {n_g / 1e6:.1f} M + D {n_d / 1e6:.1f} M "
+              f"parameters) within {grad_errs[worst]:.2e} (<= {TRAIN_GRAD_BAR}; worst "
+              f"{worst}); {TRAIN_STEPS}-step SGD (lr {TRAIN_SGD_LR}) trajectories within "
+              f"{loss_err:.2e} (<= 1e-3); "
+              f"codes differing {len(res['codes']['flips'])} of {res['codes']['codes']}, all "
+              f"at top-2 gaps < 1e-5: {flips_ok}; launches {counts} == {want}")
+
+        # timing: the kernel path from where its trajectory ended
+        init_fn, step_fn = make_gan_train_step(model, disc)
+        states = [init_fn()]
+
+        def step():
+            states[0], _ = step_fn(states[0], audio)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        step_ms = time_ms(step, TRAIN_TIMED, 0)
+        per_step = {k: v // TRAIN_TIMED for k, v in kernels.launch_counts().items() if v}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = _step_profile(step, step_ms)
+        stale = _stale_splits(model, audio)
+        with _plain_kernels():
+            plain_step_ms = time_ms(step, 3, 1)
+        res.update({"step_ms": step_ms, "audio_s_per_s": seconds / (step_ms / 1e3),
+                    "peak_gb": peak_gb, "launches_per_step": per_step, "profile": prof,
+                    "plain_step_ms": plain_step_ms, "stale_splits": stale})
+        print(f"    dac train profile: device {prof['device_ms']:.1f} ms a step, idle "
+              f"{prof['idle']:.1%}; backward {prof['backward_ms']:.1f} ms "
+              f"({prof['backward_share']:.1%}), optimizers {prof['optimizer_ms']:.1f} ms "
+              f"({prof['optimizer_share']:.1%}); top: " + ", ".join(
+                  f"{k[:40]} {ms:.1f}" for k, ms in prof["top"][:5]))
+        phase("dac train step", not stale and per_step.get("codebook_argmin") ==
+              cfg.n_codebooks and per_step.get("fused_residual_unit_dense") == 24,
+              f"GAN step at 8 x 0.5 s (AdamW): {step_ms:.1f} ms (CUDA events, {TRAIN_TIMED} "
+              f"steps), "
+              f"{res['audio_s_per_s']:.1f} s of audio trained a s, peak {peak_gb:.2f} GB; "
+              f"launches a step {per_step}; after {TRAIN_TIMED + 5} in-place AdamW updates "
+              f"the kept weight splits of the 24 units equal fresh ones (stale: "
+              f"{stale or 'none'}); plain versions {plain_step_ms:.1f} ms a step (for scale); "
+              f"on {card}")
+
+        # the generator-only step, without and with remat
+        gen_steps = {remat: _gen_step(model, start[0], audio, remat) for remat in (False, True)}
+        remat_err = max(float((gen_steps[True]["grads"][k] - g).norm() / g.norm())
+                        for k, g in gen_steps[False]["grads"].items())
+        res["gen_step"] = {("remat" if r else "no_remat"): {k: v for k, v in s.items()
+                                                            if k != "grads"}
+                           for r, s in gen_steps.items()}
+        res["gen_step"]["remat_grad_rel_err"] = remat_err
+        phase("dac train generator step, remat", remat_err <= 1e-5,
+              f"make_train_step at 8 x 0.5 s: {gen_steps[False]['ms']:.1f} ms, peak "
+              f"{gen_steps[False]['peak_gb']:.2f} GB; remat {gen_steps[True]['ms']:.1f} ms, "
+              f"peak {gen_steps[True]['peak_gb']:.2f} GB; gradients equal within "
+              f"{remat_err:.2e} (<= 1e-5)")
+        del gen_steps
+
+        units = _train_units(model, audio, gen)
+        res["units"] = units
+        phase("resunit dense training form and backward", not units["mismatches"],
+              f"24 unit shapes of the batch: inference form {units['inference_ms']:.2f} ms, "
+              f"training form {units['train_ms']:.2f} ms, backward {units['backward_ms']:.2f} "
+              f"ms; plain forward + backward {units['plain_fwd_bwd_ms']:.2f} ms"
+              + (f"; mismatches {units['mismatches']}" if units["mismatches"] else ""))
+    res["no_backward"] = _no_backward_raises()
+    res["seconds"] = time.time() - t_phase
+    print(f"    dac train phase: {res['seconds']:.1f} s")
+    return res
 
 
 # ----------------------------------------------------------- Dia phases
@@ -3224,6 +3675,7 @@ def main() -> int:
             dac_http = phase_dac_http(dac, info["smi"])
             phase_dac_file(golden_dac, golden, tmp)
             del dac
+            dac_train = phase_dac_train(tmp, info["smi"], gen)
             t_dia = time.time()
             dia_golden = phase_dia_golden()
             dia_cmp = phase_dia_card_vs_cpu()
@@ -3236,7 +3688,7 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     paths = (serve, snac_http, enc_serve, enc48, stream, lm_coding, enc_http, dsp, loud,
-             dac_serve, dac_http, dia_serve, dia_serve["http"])
+             dac_serve, dac_http, dac_train, dia_serve, dia_serve["http"])
     launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
     lstm["rows"] += stream["lstm_rows"]
     cb["rows"] += stream["codebook_rows"]
@@ -3257,7 +3709,8 @@ def main() -> int:
              "dac_http": dac_http, "lstm": lstm, "encodec_serve": enc_serve,
              "encodec_48k": enc48, "encodec_stream": stream, "ecdc_lm": lm_coding, "envelope": env,
              "biquad": bq, "dsp_pipeline": dsp, "loudness": loud, "resunit_dense": ru_dense,
-             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "loader": loader,
+             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "dac_train": dac_train,
+             "loader": loader,
              "dia_golden": dia_golden,
              "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve}, indent=1, default=str))
     print(info["smi"])

@@ -87,6 +87,16 @@ def _conv_transpose_from_hio(w: np.ndarray, groups: int) -> np.ndarray:
     return w[:, :, ::-1]
 
 
+def _conv2d_from_hwio(w: np.ndarray) -> np.ndarray:
+    """[kh, kw, Cin, Cout] -> torch Conv2d [Cout, Cin, kh, kw]."""
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+def _conv2d_to_hwio(w: np.ndarray) -> np.ndarray:
+    """torch Conv2d [Cout, Cin, kh, kw] -> [kh, kw, Cin, Cout]."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
 def _conv_to_hio(w: np.ndarray) -> np.ndarray:
     """torch Conv1d [Cout, Cin/g, K] -> [K, Cin/g, Cout]."""
     return np.transpose(w, (2, 1, 0))
@@ -123,7 +133,8 @@ def from_jax_params(params: Mapping[str, np.ndarray],
 
     params: name -> array in the JAX layouts. transposed: the weight keys of
     transposed convs with their groups (``transposed_groups(model)``); every
-    other 3-D weight is a regular conv. 2-D weights named in
+    other 3-D weight is a regular conv, and a 4-D weight a 2-D conv (HWIO,
+    the DAC discriminator's). 2-D weights named in
     ``_TORCH_LAYOUT_2D`` and the Encodec LM's embeddings ``emb.{k}.weight``
     keep their layout; every other 2-D weight (Linear, LSTM
     ``weight_ih_l*`` / ``weight_hh_l*``, the LM's ``in_proj_weight``
@@ -140,6 +151,8 @@ def from_jax_params(params: Mapping[str, np.ndarray],
             w = w.reshape(1, -1, 1)
         elif w.ndim == 3:
             w = _conv_from_hio(w)
+        elif w.ndim == 4:
+            w = _conv2d_from_hwio(w)
         elif w.ndim == 2 and not _keeps_torch_layout(key):
             w = w.T
         out[key] = torch.from_numpy(np.array(w))  # a writable, contiguous copy
@@ -153,7 +166,8 @@ def to_jax_params(state_dict: Mapping[str, np.ndarray | torch.Tensor],
 
     transposed: the weight keys of transposed convs with their groups
     (``transposed_groups(model)``). Conv weights go to HIO, a transposed
-    conv's taps are unflipped and its groups regrouped, Snake ``alpha``
+    conv's taps are unflipped and its groups regrouped, 2-D conv weights go
+    to HWIO, Snake ``alpha``
     [1, C, 1] becomes [C], and 2-D weights are transposed to ``[in, out]``
     except those ``from_jax_params`` keeps in torch's layout.
     """
@@ -168,6 +182,8 @@ def to_jax_params(state_dict: Mapping[str, np.ndarray | torch.Tensor],
             w = w.reshape(-1)
         elif w.ndim == 3:
             w = _conv_to_hio(w)
+        elif w.ndim == 4:
+            w = _conv2d_to_hwio(w)
         elif w.ndim == 2 and not _keeps_torch_layout(key):
             w = w.T
         out[key] = np.ascontiguousarray(w)

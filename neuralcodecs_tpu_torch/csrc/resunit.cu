@@ -85,6 +85,17 @@
 // Dilation up to 19 fits K1's TMA box; K0d and K2 take any. ptxas's
 // register and spill report and the count of HGMMA instructions in each
 // instantiation are printed by chip_smoke.py's build phase.
+//
+// Training form of the dense unit (nc_resunit_dense_train_f32): the same
+// three launches, but K0 writes h = snake(x, a1) into a buffer of its own
+// (the inference form lends it out's buffer) and K1 is resunit_gemm_keep_z,
+// whose epilogue also stores the pre-activation z = bd + sum_k ... beside
+// y = snake(z, a2): two more [B, C, T] writes a unit, which the backward in
+// ops/kernels/resunit.py reads with x and y (no second forward). Both K1s
+// are one body, gemm_body, instantiated with and without the z store, so
+// the inference form's kernels compile as they did before the training
+// form existed (a run-time null test on z in the shared epilogue cost the
+// inference form 5% at a 10 s stream's units).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -301,17 +312,20 @@ depthwise_rows(const float* __restrict__ x, const float* __restrict__ a1,
   }
 }
 
-// CONV (K1): src = snake(x, a1), bias = bd, alpha = a2, dst = y.
+// CONV (K1): src = snake(x, a1), bias = bd, alpha = a2, dst = y; with
+// KEEP_Z also z = the pre-activation into pre.
 // Else (K2): src = y, bias = b1, resid = x, dst = out; dil is unused.
-// win_map is src's map when tma_windows, else unused.
-template <int BN, bool CONV>
-__global__ void __launch_bounds__(kThreads, 1)
-resunit_gemm(const __grid_constant__ CUtensorMap w_big,
-                   const __grid_constant__ CUtensorMap w_small,
-                   const __grid_constant__ CUtensorMap win_map, int tma_windows,
-                   const float* __restrict__ src, const float* __restrict__ bias,
-                   const float* __restrict__ alpha, const float* __restrict__ resid,
-                   float* __restrict__ dst, int C, int T, int dil, int stride) {
+// win_map is src's map when tma_windows, else unused. The maps are the
+// kernel's __grid_constant__ parameters (TMA reads them by address).
+template <int BN, bool CONV, bool KEEP_Z>
+__device__ __forceinline__ void gemm_body(const CUtensorMap& w_big, const CUtensorMap& w_small,
+                                          const CUtensorMap& win_map, int tma_windows,
+                                          const float* __restrict__ src,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ alpha,
+                                          const float* __restrict__ resid,
+                                          float* __restrict__ dst, float* __restrict__ pre,
+                                          int C, int T, int dil, int stride) {
   using Mma = WgmmaTf32<BN>;
   constexpr int kTaps = CONV ? 7 : 1;
   constexpr uint32_t kTile = BN * kSlab * 4;  // bytes of one [BN][32] weight slab
@@ -461,13 +475,41 @@ resunit_gemm(const __grid_constant__ CUtensorMap w_big,
       const int c = n0 + 8 * (i / 4) + 2 * q + i % 2;
       if (t < T && c < C) {
         const size_t o = off + static_cast<size_t>(c) * T + t;
-        if (CONV)
-          dst[o] = snake(acc[i] + bias[c], alpha[c]);
-        else
+        if (CONV) {
+          const float v = acc[i] + bias[c];
+          if (KEEP_Z) pre[o] = v;
+          dst[o] = snake(v, alpha[c]);
+        } else {
           dst[o] = resid[o] + (acc[i] + bias[c]);
+        }
       }
     }
   }
+}
+
+template <int BN, bool CONV>
+__global__ void __launch_bounds__(kThreads, 1)
+resunit_gemm(const __grid_constant__ CUtensorMap w_big,
+             const __grid_constant__ CUtensorMap w_small,
+             const __grid_constant__ CUtensorMap win_map, int tma_windows,
+             const float* __restrict__ src, const float* __restrict__ bias,
+             const float* __restrict__ alpha, const float* __restrict__ resid,
+             float* __restrict__ dst, int C, int T, int dil, int stride) {
+  gemm_body<BN, CONV, false>(w_big, w_small, win_map, tma_windows, src, bias, alpha, resid, dst,
+                             nullptr, C, T, dil, stride);
+}
+
+// K1 of the training form: also stores z = bd + sum_k ... into z
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+resunit_gemm_keep_z(const __grid_constant__ CUtensorMap w_big,
+                    const __grid_constant__ CUtensorMap w_small,
+                    const __grid_constant__ CUtensorMap win_map, int tma_windows,
+                    const float* __restrict__ src, const float* __restrict__ bias,
+                    const float* __restrict__ alpha, float* __restrict__ dst,
+                    float* __restrict__ z, int C, int T, int dil, int stride) {
+  gemm_body<BN, true, true>(w_big, w_small, win_map, tma_windows, src, bias, alpha, nullptr, dst,
+                            z, C, T, dil, stride);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -527,43 +569,59 @@ bool window_map(CUtensorMap* map, const float* src, int B, int C, int T, int box
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// with CONV, a non-null z launches resunit_gemm_keep_z
 template <int BN, bool CONV>
 cudaError_t launch_gemm(const CUtensorMap& big, const CUtensorMap& small, const float* src,
                         const float* bias, const float* alpha, const float* resid, float* dst,
-                        int B, int C, int T, int dil, cudaStream_t stream) {
+                        int B, int C, int T, int dil, cudaStream_t stream, float* z = nullptr) {
   const int stride = window_stride(kBM + (CONV ? 6 * dil : 0) + 3);
   const size_t smem = smem_bytes<BN>(stride);
   if (stride > kMaxBox || smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const bool tma_windows = T % 4 == 0;
   CUtensorMap win_map = {};
   if (tma_windows && !window_map(&win_map, src, B, C, T, stride)) return cudaErrorInvalidValue;
+  const dim3 grid((T + kBM - 1) / kBM, (C + BN - 1) / BN, B);
+  if constexpr (CONV) {
+    if (z != nullptr) {
+      cudaError_t err = cudaFuncSetAttribute(resunit_gemm_keep_z<BN>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      resunit_gemm_keep_z<BN><<<grid, kThreads, smem, stream>>>(
+          big, small, win_map, tma_windows, src, bias, alpha, dst, z, C, T, dil, stride);
+      return cudaGetLastError();
+    }
+  }
   cudaError_t err = cudaFuncSetAttribute(resunit_gemm<BN, CONV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kBM - 1) / kBM, (C + BN - 1) / BN, B);
   resunit_gemm<BN, CONV><<<grid, kThreads, smem, stream>>>(
       big, small, win_map, tma_windows, src, bias, alpha, resid, dst, C, T, dil, stride);
   return cudaGetLastError();
 }
 
+// h and z null: the inference form (h in out's buffer, z not kept)
 template <int BN>
 cudaError_t launch_dense(const float* x, const float* a1, const float* wd_big,
                          const float* wd_small, const float* bd, const float* a2,
-                         const float* w1_big, const float* w1_small, const float* b1, float* y,
-                         float* out, int B, int C, int T, int dil, cudaStream_t stream) {
+                         const float* w1_big, const float* w1_small, const float* b1, float* h,
+                         float* z, float* y, float* out, int B, int C, int T, int dil,
+                         cudaStream_t stream) {
   const int cp = (C + 3) / 4 * 4;
   CUtensorMap maps[4];
   if (!weight_map(&maps[0], wd_big, 7 * C, cp, BN) ||
       !weight_map(&maps[1], wd_small, 7 * C, cp, BN) ||
       !weight_map(&maps[2], w1_big, C, cp, BN) || !weight_map(&maps[3], w1_small, C, cp, BN))
     return cudaErrorInvalidValue;
-  // out holds h = snake(x, a1) until the pointwise launch overwrites it
+  // without h, out holds h = snake(x, a1) until the pointwise launch
+  // overwrites it
+  if (h == nullptr) h = out;
   const dim3 grid(B * C, (T + 1023) / 1024);
-  snake_rows<<<grid, 256, 0, stream>>>(x, a1, out, C, T);
+  snake_rows<<<grid, 256, 0, stream>>>(x, a1, h, C, T);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_gemm<BN, true>(maps[0], maps[1], out, bd, a2, nullptr, y, B, C, T, dil, stream);
+  err = launch_gemm<BN, true>(maps[0], maps[1], h, bd, a2, nullptr, y, B, C, T, dil, stream, z);
   if (err != cudaSuccess) return err;
   return launch_gemm<BN, false>(maps[2], maps[3], y, b1, nullptr, x, out, B, C, T, 0, stream);
 }
@@ -618,7 +676,27 @@ extern "C" int nc_resunit_dense_f32(const float* x, const float* a1, const float
   if (err != cudaSuccess) return err;
   return with_tile(C, [&](auto bn) {
     return launch_dense<decltype(bn)::value>(x, a1, wd_big, wd_small, bd, a2, w1_big, w1_small,
-                                             b1, y, out, B, C, T, dil,
+                                             b1, nullptr, nullptr, y, out, B, C, T, dil,
+                                             static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The training form of nc_resunit_dense_f32, arguments as there, plus h, z
+// [B, C, T]: h = snake(x, a1) and z = bd + dilconv(h; Wd) are stored for
+// the backward, and y = snake(z, a2) is kept (not scratch). out does not
+// alias x, h, z or y.
+extern "C" int nc_resunit_dense_train_f32(const float* x, const float* a1, const float* wd_big,
+                                          const float* wd_small, const float* bd,
+                                          const float* a2, const float* w1_big,
+                                          const float* w1_small, const float* b1, float* h,
+                                          float* z, float* y, float* out, int B, int C, int T,
+                                          int dil, int device, void* stream) {
+  if (B <= 0 || C <= 0 || T <= 0) return cudaSuccess;
+  cudaError_t err = check_unit(device, B, C, T, dil);
+  if (err != cudaSuccess) return err;
+  return with_tile(C, [&](auto bn) {
+    return launch_dense<decltype(bn)::value>(x, a1, wd_big, wd_small, bd, a2, w1_big, w1_small,
+                                             b1, h, z, y, out, B, C, T, dil,
                                              static_cast<cudaStream_t>(stream));
   });
 }

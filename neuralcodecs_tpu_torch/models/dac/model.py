@@ -16,8 +16,16 @@ Module and parameter names follow the descript checkpoint (``encoder.block``,
 checkpoint loads with ``load_state_dict(strict=True)``. Every residual unit
 is dense (groups = 1): on a CUDA device the 24 units of a DAC-44k forward run
 the dense residual-unit kernel and every RVQ stage the codebook kernel. The
-round trip runs unchunked; training (``forward_train``, quantizer dropout)
-and the bf16 modes are not ported yet.
+round trip runs unchunked; the bf16 modes are not ported yet.
+
+Training: ``_forward_fn`` and ``forward_train`` (quantizer dropout) are
+differentiable. The straight-through estimator passes z_e's gradient to the
+encoder, the commitment loss trains the encoder and the codebook loss the
+codebook, as in the JAX package; in grad mode the residual units run the
+dense kernel's training form and its backward
+(``ops/kernels/resunit.DenseResidualUnitFn``). Quantizer dropout draws its
+stage counts from a ``torch.Generator``, which cannot give ``jax.random``'s
+numbers: the tests replace ``draw_dropout_mask`` by the JAX mask.
 
 Public layouts are the JAX package's: audio [B, T], codes [B, Nq, T],
 ``z`` and ``latents`` [B, T, C]. Inside, activations are [B, C, T].
@@ -129,9 +137,12 @@ class VectorQuantizer(nn.Module):
         codes [B, T], z_e [B, D, T])."""
         z_e = self.in_proj(z)
         codes, z_q = self.quantize(z_e)
-        commit = torch.mean((z_e - z_q) ** 2, dim=(1, 2))
-        codebook_loss = torch.mean((z_q - z_e) ** 2, dim=(1, 2))
-        z_q = z_e + (z_q - z_e)  # straight-through, rounded as the JAX forward rounds it
+        # the commitment loss trains the encoder only, the codebook loss the
+        # codebook only; the straight-through output passes z_e's gradient
+        # and rounds as the JAX forward rounds it
+        commit = torch.mean((z_e - z_q.detach()) ** 2, dim=(1, 2))
+        codebook_loss = torch.mean((z_q - z_e.detach()) ** 2, dim=(1, 2))
+        z_q = z_e + (z_q - z_e).detach()
         return self.out_proj(z_q), commit, codebook_loss, codes, z_e
 
     def decode_code(self, codes: torch.Tensor) -> torch.Tensor:
@@ -146,20 +157,33 @@ class ResidualVectorQuantizer(nn.Module):
             VectorQuantizer(cfg.resolved_latent_dim, cfg.codebook_size, cfg.codebook_dim)
             for _ in range(cfg.n_codebooks))
 
-    def forward(self, z: torch.Tensor, n_quantizers: int | None = None):
+    def forward(self, z: torch.Tensor, n_quantizers: int | None = None,
+                dropout_mask: torch.Tensor | None = None):
         """z [B, C, T] -> (z_q [B, C, T], codes [B, Nq, T], latents
         [B, Nq·D, T], commitment loss, codebook loss); the losses are the sums
-        over stages of each stage's batch mean."""
+        over stages of each stage's batch mean.
+
+        dropout_mask: optional [B] int counts of active stages (quantizer
+        dropout). With a mask every stage runs, and stage i's z_q and
+        losses count for row b only where i < mask[b]; ``n_quantizers`` is
+        then not read."""
         residual, z_q = z, torch.zeros_like(z)
         codes, latents = [], []
         commit = torch.zeros((), device=z.device)
         codebook_loss = torch.zeros((), device=z.device)
-        limit = len(self.quantizers) if n_quantizers is None else n_quantizers
-        for vq in self.quantizers[:limit]:
+        limit = len(self.quantizers) if n_quantizers is None or dropout_mask is not None \
+            else n_quantizers
+        for i, vq in enumerate(self.quantizers[:limit]):
             z_q_i, commit_i, cb_i, codes_i, z_e_i = vq(residual)
-            z_q = z_q + z_q_i
-            commit = commit + torch.mean(commit_i)
-            codebook_loss = codebook_loss + torch.mean(cb_i)
+            if dropout_mask is None:
+                z_q = z_q + z_q_i
+                commit = commit + torch.mean(commit_i)
+                codebook_loss = codebook_loss + torch.mean(cb_i)
+            else:
+                active = (i < dropout_mask).to(z.dtype)  # [B]
+                z_q = z_q + z_q_i * active[:, None, None]
+                commit = commit + torch.mean(commit_i * active)
+                codebook_loss = codebook_loss + torch.mean(cb_i * active)
             residual = residual - z_q_i
             codes.append(codes_i)
             latents.append(z_e_i)
@@ -218,6 +242,32 @@ class DAC(CodecWeights, nn.Module):
     def _forward_fn(self, audio: torch.Tensor, n_quantizers: int | None) -> dict[str, Any]:
         """Round trip on padded [B, 1, T] audio; internal [B, C, T] layouts."""
         z_q, codes, latents, commit, cb = self.quantizer(self.encoder(audio), n_quantizers)
+        return {"audio": self.decoder(z_q), "z": z_q, "codes": codes, "latents": latents,
+                "vq/commitment_loss": commit, "vq/codebook_loss": cb}
+
+    def draw_dropout_mask(self, batch: int, generator: torch.Generator | None = None
+                          ) -> torch.Tensor:
+        """[B] int counts of active RVQ stages for a training batch: the first
+        int(B · quantizer_dropout) rows draw theirs from [1, Nq], the rest
+        keep all Nq (n_stages + 1, as the JAX package marks them)."""
+        n_stages = len(self.quantizer.quantizers)
+        mask = torch.full((batch,), n_stages + 1, dtype=torch.int64)
+        n_dropout = int(batch * self.config.quantizer_dropout)
+        if n_dropout > 0:
+            draws = torch.randint(1, n_stages + 1, (batch,), generator=generator)
+            mask[:n_dropout] = draws[:n_dropout]
+        return mask.to(self.device)
+
+    def forward_train(self, audio: torch.Tensor, generator: torch.Generator | None = None
+                      ) -> dict[str, Any]:
+        """Training forward with quantizer dropout on padded [B, 1, T] audio,
+        outputs as ``_forward_fn``'s. Every RVQ stage runs; a
+        ``quantizer_dropout`` share of the rows trains with a random count
+        of active stages (``draw_dropout_mask``, from ``generator``, a CPU
+        generator)."""
+        z = self.encoder(audio)
+        mask = self.draw_dropout_mask(audio.shape[0], generator)
+        z_q, codes, latents, commit, cb = self.quantizer(z, None, mask)
         return {"audio": self.decoder(z_q), "z": z_q, "codes": codes, "latents": latents,
                 "vq/commitment_loss": commit, "vq/codebook_loss": cb}
 

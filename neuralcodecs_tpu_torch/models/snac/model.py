@@ -144,7 +144,7 @@ class VectorQuantizer(nn.Module):
         codebook = self.codebook.weight
         codes = cosine_argmin_codes(z_e.transpose(1, 2), codebook)   # [B, T']
         z_q = codebook_lookup(codes, codebook).transpose(1, 2)
-        z_q = z_e + (z_q - z_e)  # straight-through, rounded as the JAX forward rounds it
+        z_q = z_e + (z_q - z_e).detach()  # straight-through, rounded as the JAX forward rounds it
         z_q = self.out_proj(z_q)
         if self.stride > 1:
             z_q = z_q.repeat_interleave(self.stride, dim=-1)

@@ -28,7 +28,8 @@ taken as 1 and not read, as in the Pallas kernel.
 ``biquad_df2t`` is the wrapper: the plain cascade for CPU tensors, the
 kernel for CUDA tensors, or an error. ``biquad_df2t.launches`` counts
 wrapper calls that launched the kernel (three CUDA launches, one where
-T <= CHUNK).
+T <= CHUNK). The kernel has no backward: on a CUDA tensor that requires
+grad, in grad mode, the wrapper raises.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from neuralcodecs_tpu_torch.ops.kernels.build import (
-    check, check_rows, device_and_stream, load_library)
+    check, check_rows, device_and_stream, load_library, refuse_grad)
 
 CHUNK = 1024        # samples a chunk (a multiple of the kernel's 128-sample tile)
 MAX_SECTIONS = 2
@@ -206,6 +207,7 @@ def biquad_df2t(x: torch.Tensor, sections: Sequence[Section]) -> torch.Tensor:
     if x.device.type == "cpu":
         return biquad_cascade_plain(x, sections)
     check_rows(x, "biquad_df2t")
+    refuse_grad("biquad_df2t", x)
     lib = load_library()
     n, t = x.shape
     c = -(-t // CHUNK)

@@ -46,6 +46,9 @@ _SIGNATURES = {
     # out, B, C, T, dilation, device, stream; the weights split and re-laid by
     # resunit.pack_dense_weights
     "nc_resunit_dense_f32": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
+    # the training form: nc_resunit_dense_f32's arguments with h, z (kept for the
+    # backward) before y, which is kept too
+    "nc_resunit_dense_train_f32": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     # gates_x, w_hh, h0, c0, ys, h_f, c_f, T, B, H, device, stream
     "nc_lstm_scan_f32": [_P] * 7 + [_I, _I, _I, _I, _P],
     # B, H, device, out[3] (launches nothing)
@@ -163,6 +166,18 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward that the kernel ``name``
+    lacks: grad mode on and an input that requires grad. The kernel's output
+    would carry no grad_fn and cut the graph without a word (a Pallas call
+    without a custom_vjp cannot be differentiated either)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; run it under "
+                           "torch.no_grad() or on inputs that do not require grad")
 
 
 def check_rows(x, name: str) -> None:

@@ -17,7 +17,8 @@ have no counterpart: on a CUDA tensor the kernel runs at any N and T.
 
 ``envelope_follow`` is the wrapper: the plain version for CPU tensors, the
 kernel for CUDA tensors, or an error. ``envelope_follow.launches`` counts
-kernel launches.
+kernel launches. The kernel has no backward: on a CUDA tensor that
+requires grad, in grad mode, the wrapper raises.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from neuralcodecs_tpu_torch.ops.kernels.build import (
-    check, check_rows, device_and_stream, load_library)
+    check, check_rows, device_and_stream, load_library, refuse_grad)
 
 
 def envelope_follow_plain(x: torch.Tensor, attack_gain: float,
@@ -53,6 +54,7 @@ def envelope_follow(x: torch.Tensor, attack_gain: float, release_gain: float) ->
     if x.device.type == "cpu":
         return envelope_follow_plain(x, attack_gain, release_gain)
     check_rows(x, "envelope_follow")
+    refuse_grad("envelope_follow", x)
     if x.data_ptr() % 16:  # the kernel's bulk copies want 16-byte aligned rows
         x = x.clone()
     lib = load_library()

@@ -15,6 +15,8 @@ so neither version converts it per call.
 
 ``lstm_scan`` is the wrapper: the plain version for CPU tensors, the kernel
 for CUDA tensors, or an error. ``lstm_scan.launches`` counts kernel launches.
+The kernel has no backward: on CUDA tensors that require grad, in grad
+mode, the wrapper raises.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import ctypes
 
 import torch
 
-from neuralcodecs_tpu_torch.ops.kernels.build import check, device_and_stream, load_library
+from neuralcodecs_tpu_torch.ops.kernels.build import (check, device_and_stream, load_library,
+                                                      refuse_grad)
 
 
 def lstm_scan_plain(gates_x: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
@@ -72,6 +75,7 @@ def lstm_scan(gates_x: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     if all(t.device.type == "cpu" for t in tensors.values()):
         return lstm_scan_plain(gates_x, w_hh, h0, c0)
     _check_inputs(tensors)
+    refuse_grad("lstm_scan", *tensors.values())
     lib = load_library()
     t_len, b, four_h = gates_x.shape
     h = four_h // 4

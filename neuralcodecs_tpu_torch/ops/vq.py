@@ -3,7 +3,9 @@
 Score = ‖e‖² − 2·x·e; the ‖x‖² row constant cannot change the argmin and is
 dropped. Ties break to the lowest index. The search itself is the codebook
 kernel (ops/kernels/codebook.py): CUDA on a CUDA tensor, its plain PyTorch
-version on a CPU tensor.
+version on a CPU tensor. Codes are integers and carry no gradient, so the
+searches run outside autograd; ``quantize_st`` passes the gradient around
+the search (straight-through).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin
 
 
+@torch.no_grad()
 def l2_argmin_codes(latents: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-codebook-entry indices.
 
@@ -29,6 +32,7 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp_min(norm, eps)
 
 
+@torch.no_grad()
 def cosine_argmin_codes(latents: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest entry under the ViT-VQGAN normalized lookup (SNAC/DAC): both
     the encodings and the codebook rows are L2-normalized before the search.
@@ -40,3 +44,12 @@ def cosine_argmin_codes(latents: torch.Tensor, codebook: torch.Tensor) -> torch.
 def codebook_lookup(codes: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Embed code indices: [...] int -> [..., D]."""
     return codebook[codes.long()]
+
+
+def quantize_st(latents: torch.Tensor, codebook: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize with straight-through gradients: (quantized [..., D], whose
+    gradient flows to ``latents`` unchanged, codes int32 [...])."""
+    codes = l2_argmin_codes(latents, codebook)
+    quantized = codebook_lookup(codes, codebook).to(latents.dtype)
+    return latents + (quantized - latents).detach(), codes

@@ -434,7 +434,9 @@ LOADER_MODULES = ("cache", "events", "export", "files", "importer", "interfaces"
 
 def test_port_imports_without_jax():
     """The facade, every core module of the loader stack and every other
-    module of the port import with no JAX and nothing of the JAX package;
+    module of the port (the losses, the discriminator and the training steps
+    by name) import with no JAX and nothing of the JAX package; a tiny GAN
+    train step runs;
     the CLI parses and runs a command, and an HTTP and a TCP streaming server
     start on a tiny model and answer, still with no JAX."""
     code = ("import sys, pkgutil, importlib, neuralcodecs_tpu_torch as p\n"
@@ -446,6 +448,20 @@ def test_port_imports_without_jax():
             "assert registry.architectures() == ['dac', 'dia', 'encodec', 'snac']\n"
             "for m in pkgutil.walk_packages(p.__path__, 'neuralcodecs_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "from neuralcodecs_tpu_torch.losses import (l1_loss, mel_spectrogram_loss,\n"
+            "    discriminator_loss, generator_loss, feature_matching_loss)\n"
+            "from neuralcodecs_tpu_torch.models.dac.discriminator import DACDiscriminator\n"
+            "from neuralcodecs_tpu_torch.parallel import (make_train_step, make_gan_train_step,\n"
+            "    save_train_state, restore_train_state, AudioCropDataset)\n"
+            "import torch\n"
+            "from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig\n"
+            "dac = DAC(DACConfig(sample_rate=16000, encoder_dim=8, encoder_rates=[2, 2],\n"
+            "    decoder_dim=32, decoder_rates=[2, 2], n_codebooks=2, codebook_size=16,\n"
+            "    codebook_dim=4), device='cpu')\n"
+            "disc = DACDiscriminator((2, 3), (128,), device='cpu')\n"
+            "init_fn, step_fn = make_gan_train_step(dac, disc)\n"
+            "states, metrics = step_fn(init_fn(), 0.1 * torch.randn(2, 1024, 1))\n"
+            "assert states[0].step == 1 and all(torch.isfinite(v) for v in metrics.values())\n"
             "import http.client, json\n"
             "from neuralcodecs_tpu_torch.cli.main import build_parser, main\n"
             "from neuralcodecs_tpu_torch.cli.serve import CodecServer\n"
