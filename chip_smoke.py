@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--out details.json]
+    python3 chip_smoke.py [--out details.json] [--phases dia_bf16,codec_precision]
 
 Builds the port's CUDA kernels from neuralcodecs_tpu_torch/csrc and holds
 each against its plain PyTorch version at the shapes its round trips give
@@ -66,6 +66,14 @@ the CPU in f32 and f64; then the full 1.61 B model (seeded, f32) serving 4
 requests of 512 tokens through the DAC-44k above, a voice-clone prompt,
 generate_stream against its one-shot codes and the int8 serving ladder,
 with the decode step's time, launches, bound, syncs and idle share. The
+precision modes: Dia 1.6B loaded in bf16 (load_dia(compute_dtype=bf16))
+serving 4 requests to 128 tokens and a 1 s voice-clone prompt through the
+f32 DAC-44k, the same requests in f32 for scale and the two modes' step in
+alternating order, the int8 and int4 ladders at bf16, and the card's bf16
+caches and logits at 2 + 2 layers against the f64 port (an fp8-weight
+control must fail that check); SNAC-24k, DAC-44k and Encodec-24k loaded in
+decoder_dtype=bf16 and compute_dtype=bf16, whose mixed-mode codes must be
+the f32 mode's (--phases runs only these, after the build and exports). The
 real servers then serve the loaded models on 127.0.0.1:0 in background
 threads (cli/serve.py's CodecServer, cli/stream_serve.py's
 StreamingCodecServer; clients on keep-alive http.client connections and
@@ -185,9 +193,10 @@ def _compressor_gains(sample_rate: int) -> tuple[float, float]:
 
 
 def phase_device() -> dict:
-    """The card, and the port's TF32 policy as its import left it: nothing
-    here sets a flag."""
-    from neuralcodecs_tpu_torch.ops.precision import tf32_disabled
+    """The card, and the port's TF32 and bf16 reduction policy as its
+    import left it: nothing here sets a flag."""
+    from neuralcodecs_tpu_torch.ops.precision import (bf16_reduced_reduction_disabled,
+                                                      tf32_disabled)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -196,9 +205,10 @@ def phase_device() -> dict:
     print(card, flush=True)
     info = {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
             "smi": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    phase("device", bool(card) and tf32_disabled(),
+    phase("device", bool(card) and tf32_disabled() and bf16_reduced_reduction_disabled(),
           f"{info['name']} x{info['count']}, nvidia-smi '{card}', torch {info['torch']} "
-          f"cuda {info['cuda']}, tf32 off after import={tf32_disabled()}")
+          f"cuda {info['cuda']}, tf32 off after import={tf32_disabled()}, bf16 reduced "
+          f"reduction off={bf16_reduced_reduction_disabled()}")
     return info
 
 
@@ -2609,6 +2619,27 @@ def _dia_forced_logits(model, st, tokens: np.ndarray) -> list[torch.Tensor]:
     return out
 
 
+def _dia_small_config():
+    """DiaConfig() widths with 2 encoder and 2 decoder layers."""
+    from neuralcodecs_tpu_torch.models.dia import DiaConfig
+
+    cfg = DiaConfig()
+    cfg.encoder.n_layer = cfg.decoder.n_layer = 2
+    return cfg
+
+
+def _dia_forced_run(model) -> tuple:
+    """The prefill of DIA_TEXTS[:2] (a 64-token buffer) and 16 teacher-forced
+    decode steps of seeded tokens: (the loop state, the steps' logits
+    stacked, f64 on the CPU)."""
+    text = model._pad_text([model.encode_text(t) for t in DIA_TEXTS[:2]])
+    tokens = np.random.default_rng(SEED).integers(0, 1024,
+                                                  size=(4, 16, model.config.data.channels))
+    delayed, steps = model._prefill([None, None], 2)
+    st = model._start_state(text, delayed, steps, SEED, np.ones(2, bool), max_tokens=64)
+    return st, torch.stack([x.cpu().double() for x in _dia_forced_logits(model, st, tokens)])
+
+
 @contextlib.contextmanager
 def _tf32_on():
     """TF32 products for matmuls and convolutions, as a precision control."""
@@ -2630,25 +2661,18 @@ def phase_dia_card_vs_cpu() -> dict:
     Then a greedy 32-step generation on the card and the CPU."""
     from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
 
-    cfg = DiaConfig()
-    cfg.encoder.n_layer = cfg.decoder.n_layer = 2
+    cfg = _dia_small_config()
     card = Dia(cfg, device=DEVICE, seed=SEED)
     cpu = Dia(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
     f64 = Dia(cfg, device="cpu", compute_dtype=torch.float64)
     f64.load_state_dict(card.state_dict())
     texts = DIA_TEXTS[:2]
-    text = card._pad_text([card.encode_text(t) for t in texts])
-    tokens = np.random.default_rng(SEED).integers(0, 1024, size=(4, 16, cfg.data.channels))
     states, logits = {}, {}
     runs = (("card", card), ("cpu", cpu), ("f64", f64), ("tf32", card))
     for name, model in runs:
         with _tf32_on() if name == "tf32" else contextlib.nullcontext():
-            delayed, steps = model._prefill([None, None], 2)
-            states[name] = model._start_state(text, delayed, steps, SEED, np.ones(2, bool),
-                                              max_tokens=64)
-            logits[name] = torch.stack([x.cpu().double() for x in
-                                        _dia_forced_logits(model, states[name], tokens)])
+            states[name], logits[name] = _dia_forced_run(model)
     measured = ("card", "cpu", "tf32")
     cache_err = {name: max(float((getattr(a, key).cpu().double() - getattr(b, key)).abs().max())
                            for a, b in zip(states[name].self_caches + states[name].cross_caches,
@@ -2682,17 +2706,20 @@ def _dia_step_bytes(dia, rows: int, text_len: int, live: float) -> tuple[float, 
     logits head), the self-attention K/V of ``live`` positions and the cross
     K/V of ``text_len``, for ``rows`` CFG rows."""
     d = dia.config.decoder
+    act = torch.empty((), dtype=dia.compute_dtype).element_size()
     mods = [dia.decoder.logits_dense]
     for layer in dia.decoder.layers:
         mods += [layer.self_attention, layer.cross_attention.q_proj,
                  layer.cross_attention.o_proj, layer.mlp]
-    tensors = [t for m in mods for t in m.state_dict().values()]
-    weight_bytes = sum(t.numel() * t.element_size() for t in tensors)
-    params = sum(t.numel() for t in tensors if t.dim() >= 2)
-    kv_elem = 1 if dia.kv_cache_int8 else 4
+    tensors = [(k, t) for m in mods for k, t in m.state_dict().items()]
+    # a DenseGeneral's f32 kernel is read as its compute-dtype copy
+    weight_bytes = sum(t.numel() * (act if k.endswith(".weight") and t.dim() >= 2
+                                    else t.element_size()) for k, t in tensors)
+    params = sum(t.numel() for _, t in tensors if t.dim() >= 2)
+    kv_elem = 1 if dia.kv_cache_int8 else act
     kv = d.n_layer * 2 * rows * live * d.kv_heads * (d.gqa_head_dim * kv_elem
                                                       + (4 if dia.kv_cache_int8 else 0))
-    cross = d.n_layer * 2 * rows * text_len * d.cross_query_heads * d.cross_head_dim * 4
+    cross = d.n_layer * 2 * rows * text_len * d.cross_query_heads * d.cross_head_dim * act
     flops = 2.0 * params * rows + d.n_layer * 4.0 * rows * d.gqa_query_heads * d.gqa_head_dim * (
         live + text_len)
     return weight_bytes + kv + cross, flops
@@ -2826,18 +2853,14 @@ class _CallCount:
 
 def _dia_from_export(tmp: Path, card: str):
     """The full 1.61 B Dia, seeded on the card, exported with save_pretrained
-    in 2 GiB shards and loaded back through load_dia; state dicts equal. The
-    export is deleted once loaded."""
-    import shutil
-
+    in 2 GiB shards into tmp / "dia" and loaded back through load_dia; state
+    dicts equal. The export stays for phase_dia_bf16, which deletes it."""
     from neuralcodecs_tpu_torch import load_dia
     from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
 
-    directory = tmp / "dia"
     dia, res = _export_and_load("dia-1.6b", Dia(DiaConfig(), device=DEVICE, seed=SEED),
-                                directory, lambda d: load_dia(d, device=DEVICE), card,
+                                tmp / "dia", lambda d: load_dia(d, device=DEVICE), card,
                                 max_shard_bytes=2 ** 31)
-    shutil.rmtree(directory)
     torch.cuda.empty_cache()   # the seeded copy
     return dia, res
 
@@ -3001,6 +3024,339 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
           f"the prompt's encode again with plain kernels 1 and 2b: codes equal {prompt_equal}; "
           f"vocode of 4 x 861 frames {vocode_ms:.1f} ms (plain {vocode_plain_ms:.1f} ms, SNR "
           f"{vocode_snr:.1f} dB > 55); no NaN logits")
+    return res
+
+
+# ------------------------------------------------------ precision modes
+
+BF16 = torch.bfloat16
+# bf16 dense peak of the tensor cores (NVIDIA data sheet, SXM, at 700 W)
+BF16_FLOPS = 989e12
+# the bf16 phase's traffic: DIA_SERVE_KW's requests and bucket, max_tokens
+# cut from 512 to 128 for the phases' time budget; the ladders to 64
+DIA_BF16_KW = dict(DIA_SERVE_KW, max_tokens=128)
+DIA_BF16_LADDER_KW = dict(DIA_SERVE_KW, max_tokens=64)
+
+
+def _fp8_rounded(w: torch.Tensor) -> torch.Tensor:
+    """w rounded to fp8 (e4m3: 3 mantissa bits, bf16 has 7), through a
+    power-of-two scale that puts its largest entry in e4m3's range."""
+    scale = 2.0 ** torch.floor(torch.log2(240.0 / w.abs().amax()))
+    return (w * scale).to(torch.float8_e4m3fn).to(w.dtype) / scale
+
+
+def _dia_cache_err(st, ref) -> float:
+    """max |err| of the prefill's self and cross caches against ref's."""
+    return max(float((getattr(a, key).cpu().double() - getattr(b, key)).abs().max())
+               for a, b in zip(st.self_caches + st.cross_caches,
+                               ref.self_caches + ref.cross_caches)
+               for key in ("k", "v"))
+
+
+def _dia_bf16_card_vs_cpu() -> dict:
+    """DiaConfig() widths at 2 + 2 layers, seeded, each q projection scaled
+    by 1/sqrt(head_dim) as a trained Dia folds it: unit-scale q and k give
+    scores of spread sqrt(128) ~ 11, near one-hot, and bf16's error then
+    saturates at the logits' own scale. The prefill caches (the encoder's
+    through the cross caches, each decoder layer's through the self caches)
+    and 16 teacher-forced steps' logits in bf16 on the card and on the CPU,
+    against the port's f64 mode on the CPU: the card must be within
+    DIA_F64_FACTOR x the CPU bf16 port's error in both, and the control, the
+    card model with its weights rounded to fp8, must fall outside it in
+    both. A reading, not gated: the card with cuBLAS's bf16 reduced-precision
+    reduction on (off by the port's policy), which adds one rounding a
+    product, as bf16 attention scores would: too little for a 4 x limit."""
+    from neuralcodecs_tpu_torch.models.dia import Dia
+    from neuralcodecs_tpu_torch.models.dia.layers import DenseGeneral
+
+    cfg = _dia_small_config()
+    weights = Dia(cfg, device=DEVICE, seed=SEED).state_dict()
+    for key, w in weights.items():
+        if key.endswith("q_proj.weight"):   # every DiaConfig() attention has 128-wide heads
+            w.mul_(cfg.decoder.gqa_head_dim ** -0.5)
+    t0 = time.perf_counter()
+    models = {"f64": Dia(cfg, device="cpu", compute_dtype=torch.float64),
+              "cpu": Dia(cfg, device="cpu", compute_dtype=BF16),
+              "card": Dia(cfg, device=DEVICE, compute_dtype=BF16),
+              "fp8": Dia(cfg, device=DEVICE, compute_dtype=BF16)}
+    for model in models.values():
+        model.load_state_dict(weights)
+    del weights
+    for m in models["fp8"].modules():
+        if isinstance(m, DenseGeneral):
+            m.weight.copy_(_fp8_rounded(m.weight))
+    states, logits = {}, {}
+    for name, model in models.items():
+        states[name], logits[name] = _dia_forced_run(model)
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        states["reduced"], logits["reduced"] = _dia_forced_run(models["card"])
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+    del models
+    measured = ("card", "cpu", "fp8", "reduced")
+    err = {"caches": {n: _dia_cache_err(states[n], states["f64"]) for n in measured},
+           "logits": {n: float((logits[n] - logits["f64"]).abs().max()) for n in measured}}
+    limit = {k: DIA_F64_FACTOR * e["cpu"] for k, e in err.items()}
+    res = {"err_vs_f64": err, "limits": limit,
+           "logit_scale": float(logits["f64"].abs().max()),
+           "card_vs_cpu": float((logits["card"] - logits["cpu"]).abs().max()),
+           "finite": bool(torch.isfinite(logits["card"]).all()),
+           "within": all(0 < err[k]["card"] <= limit[k] for k in limit),
+           "control_caught": all(err[k]["fp8"] > limit[k] for k in limit),
+           "seconds": time.perf_counter() - t0}
+    res["ok"] = res["finite"] and res["within"] and res["control_caught"]
+    return res
+
+
+def _dia_step_series(dia, rounds: int = 4, steps: int = 16) -> dict:
+    """One model's decode step in bf16 and in f32, in alternating order
+    (bf16, f32, f32, bf16, ...), each mode carrying its own 4-request state
+    in the served bucket: ms a step by CUDA events over ``steps`` steps, one
+    sample a mode a round, sorted."""
+    modes = {"bf16": BF16, "f32": torch.float32}
+    text = dia._pad_text([dia.encode_text(t) for t in DIA_TEXTS])
+    delayed, prefill_steps = dia._prefill([None] * len(DIA_TEXTS), len(DIA_TEXTS))
+    sampling = dia._sampling(DIA_SERVE_KW["pad_tokens_to"], None, None, None, None)
+    states = {}
+    for name, dtype in modes.items():
+        dia.compute_dtype = dtype
+        states[name] = dia._start_state(text, delayed, prefill_steps, SEED,
+                                        np.ones(len(DIA_TEXTS), bool),
+                                        max_tokens=DIA_SERVE_KW["pad_tokens_to"],
+                                        token_limit=DIA_SERVE_KW["max_tokens"])
+        for _ in range(4):
+            dia._decode_step(states[name], sampling)
+    samples = {name: [] for name in modes}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for r in range(rounds):
+        for name in list(modes)[::1 if r % 2 == 0 else -1]:
+            dia.compute_dtype = modes[name]
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(steps):
+                dia._decode_step(states[name], sampling)
+            end.record()
+            torch.cuda.synchronize()
+            samples[name].append(start.elapsed_time(end) / steps)
+    dia.compute_dtype = BF16
+    return {name: sorted(v) for name, v in samples.items()}
+
+
+def _dia_run(dia, kw: dict, peak: float) -> dict:
+    """A served generate of DIA_TEXTS, then the decode step's time and its
+    bound (the step's bytes and operations at ``peak``)."""
+    run = _dia_served(dia, DIA_TEXTS, **kw)
+    _check_audio(run["audios"], f"{dia.compute_dtype} generate")
+    step = _dia_step_time(dia, DIA_TEXTS, steps=16)
+    nbytes, flops = _dia_step_bytes(dia, 2 * len(DIA_TEXTS), 128, step["position"])
+    return {"run": run, "step": step, "bytes": nbytes, "bound": bound(flops, nbytes, peak)}
+
+
+def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
+    """Dia 1.6B in bf16, the JAX package's serving mode: loaded through
+    load_dia(compute_dtype=torch.bfloat16) from the export _dia_from_export
+    wrote (then deleted), vocoded by the f32 DAC-44k export. Four requests
+    in the 1024 bucket to 128 tokens and a voice-clone prompt of 1 s
+    (kernels 1 and 2b run in the DAC's encode and from_codes), with the
+    decode step's time by CUDA events and the host's enqueue, device time,
+    idle share and launches by torch.profiler, tokens/s, realtime factor,
+    peak memory and the step's bytes bound; the same four requests with the
+    same parameters in f32 for scale, then the two modes' step in
+    alternating order (_dia_step_series); the int8 and the int4 ladders at
+    bf16 to 64 tokens; then the card's bf16 caches and logits at 2 + 2
+    layers against the f64 port (_dia_bf16_card_vs_cpu)."""
+    import shutil
+
+    from neuralcodecs_tpu_torch import load_dia
+    from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
+    from neuralcodecs_tpu_torch.models.dia import model as dia_model
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dia = load_dia(str(tmp / "dia"), device=DEVICE, compute_dtype=BF16).eval()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(tmp / "dia")
+    if dia.compute_dtype != BF16 or any(p.dtype != torch.float32 for p in dia.parameters()):
+        raise PhaseError("load_dia(compute_dtype=bf16) did not give a bf16 Dia on f32 weights")
+    dia.load_dac_model(str(dac_dir))
+    dac = dia.dac
+    wav = tmp / "prompt_1s.wav"
+    _write_prompt_wav(wav, 1.0, dac.config.sample_rate)
+    res = {"load_s": load_s}
+
+    kernels.reset_launch_counts()
+    with _CallCount(dac, ("from_codes", "encode")) as dac_calls:
+        dia.generate_codes(DIA_TEXTS, **dict(DIA_SERVE_KW, max_tokens=32))   # warm-up
+        res["bf16"] = _dia_run(dia, DIA_BF16_KW, BF16_FLOPS)
+        prompt = dia.load_audio_prompt(wav)
+        clone = _dia_served(dia, DIA_TEXTS[:1], audio_prompts=[prompt], **DIA_BF16_KW)
+        _check_audio(clone["audios"], "voice clone bf16")
+        dia.compute_dtype = torch.float32   # the same parameters, in the f32 mode
+        res["f32"] = _dia_run(dia, DIA_BF16_KW, F32_FLOPS)
+        res["series"] = _dia_step_series(dia)
+        weights = {k: v.clone() for k, v in dia.state_dict().items()}
+        dia.quantize_int8().enable_int8_kv_cache()
+        dia.kv_dot_int8 = True
+        res["int8"] = _dia_run(dia, DIA_BF16_LADDER_KW, BF16_FLOPS)
+        del dia
+        dia = Dia(DiaConfig(), device=DEVICE, compute_dtype=BF16)
+        dia.load_state_dict(weights)
+        del weights
+        dia.set_dac_model(dac)
+        dia.quantize_int4().enable_int8_kv_cache()
+        dia.kv_dot_int8 = True
+        res["int4"] = _dia_run(dia, DIA_BF16_LADDER_KW, BF16_FLOPS)
+        del dia
+        torch.cuda.synchronize()
+    served, f32 = res["bf16"]["run"], res["f32"]["run"]
+    counts = kernels.launch_counts()
+    torch.cuda.empty_cache()
+    n_dec, n_enc = len(_residual_units(dac.decoder)), len(_residual_units(dac.encoder))
+    want = {**_NO_LAUNCHES, "codebook_argmin": dac.config.n_codebooks * dac_calls.calls["encode"],
+            "fused_residual_unit_dense": n_dec * dac_calls.calls["from_codes"]
+            + n_enc * dac_calls.calls["encode"]}
+    runs = {"bf16": served, "clone": clone, "f32": f32, "int8": res["int8"]["run"],
+            "int4": res["int4"]["run"]}
+    for label, run in runs.items():
+        codes, lengths = run["codes"]
+        if codes.min() < 0 or codes.max() > 1023 or lengths.max() > DIA_BF16_KW["max_tokens"]:
+            raise PhaseError(f"{label}: codes in [{codes.min()}, {codes.max()}], "
+                             f"lengths {lengths}")
+    sync_ok = all(r["syncs"] <= r["steps"] // dia_model._SYNC_EVERY + 16 for r in runs.values())
+    logits = _dia_bf16_card_vs_cpu()
+    series = res["series"]
+    median = {name: float(np.median(v)) for name, v in series.items()}
+    print("    dia step in alternating order (ms, CUDA events, sorted): " + "; ".join(
+        f"{name} {', '.join(f'{x:.2f}' for x in v)} (median {median[name]:.2f})"
+        for name, v in series.items())
+        + f"; bf16 / f32 medians {median['bf16'] / median['f32']:.3f} on {card}")
+    for label in ("bf16", "f32", "int8", "int4"):
+        run, st = res[label]["run"], res[label]["step"]
+        bnd = res[label]["bound"]
+        print(f"    dia {label}: {run['steps']} steps of 4 requests in {run['wall_s']:.2f} s = "
+              f"{run['tokens_per_s']:.1f} tokens/s ({run['realtime']:.2f}x realtime a request); "
+              f"decode step {st['ms']:.2f} ms (CUDA events; host enqueue "
+              f"{st['host_enqueue_ms']:.2f} ms, device {st['device_ms']:.2f} ms, idle "
+              f"{st['idle']:.1%}, {st['launches']:.0f} launches) at position {st['position']}, "
+              f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}, "
+              f"{res[label]['bytes'] / 1e9:.2f} GB a step); peak {run['peak_gb']:.2f} GB "
+              f"on {card}")
+        print("    top: " + ", ".join(f"{k[:40]} {ms:.3f} ms x{n:.0f}" for k, ms, n in st["top"]))
+    res["counts"], res["dac_calls"], res["card_vs_cpu"] = counts, dict(dac_calls.calls), logits
+    for label in ("bf16", "f32", "int8", "int4"):
+        res[label]["run"] = {k: v for k, v in res[label]["run"].items()
+                             if k not in ("audios", "codes")}
+    res["clone"] = {k: v for k, v in clone.items() if k not in ("audios", "codes")}
+    res["seconds"] = time.perf_counter() - t_phase
+    ok = (counts == want and counts["codebook_argmin"] > 0 and logits["ok"] and sync_ok
+          and not any(r["nan_logits"] for r in runs.values()))
+    phase("dia bf16", ok,
+          f"load_dia(compute_dtype=bf16) in {load_s:.2f} s; launches {counts} == {want} "
+          f"({dac_calls.calls}); 4 requests to {DIA_BF16_KW['max_tokens']} tokens: bf16 "
+          f"{served['tokens_per_s']:.1f} tokens/s, step {res['bf16']['step']['ms']:.2f} ms, "
+          f"peak {served['peak_gb']:.2f} GB; f32 {f32['tokens_per_s']:.1f} tokens/s, step "
+          f"{res['f32']['step']['ms']:.2f} ms, peak {f32['peak_gb']:.2f} GB; voice clone "
+          f"({prompt.shape[0]} prompt frames) {clone['wall_s']:.2f} s; ladders at bf16 to "
+          f"{DIA_BF16_LADDER_KW['max_tokens']}: int8 step {res['int8']['step']['ms']:.2f} ms, "
+          f"int4 {res['int4']['step']['ms']:.2f} ms; syncs within steps / "
+          f"{dia_model._SYNC_EVERY} + 16: {sync_ok}; 2 + 2 layers in bf16 against f64, max "
+          f"|err| (card / CPU bf16 / limit / fp8 control / reduced reduction): " + "; ".join(
+              f"{k} {e['card']:.3e} / {e['cpu']:.3e} / {logits['limits'][k]:.3e} / "
+              f"{e['fp8']:.3e} / {e['reduced']:.3e}" for k, e in logits["err_vs_f64"].items())
+          + f" (max |logit| {logits['logit_scale']:.2f}); card within: {logits['within']}, "
+          f"control outside: {logits['control_caught']}; card vs CPU logits "
+          f"{logits['card_vs_cpu']:.3e}, finite {logits['finite']} ({logits['seconds']:.1f} s); "
+          f"no NaN logits; {res['seconds']:.1f} s on {card}")
+    return res
+
+
+CODEC_MODES = {"mixed": "decoder_dtype", "bf16": "compute_dtype"}
+
+
+def _codec_roundtrip(name: str, model, batch: np.ndarray) -> tuple[list, torch.Tensor]:
+    """(codes, audio) of one round trip of a [B, T] batch as the servers
+    run it."""
+    if name == "snac":
+        audio, codes = model.forward(batch)
+        return codes, audio
+    if name == "dac":
+        out = model.forward(batch)
+        return [out["codes"]], out["audio"]
+    frames = model.encode(batch[:, None, :])
+    return [f.codes for f in frames], model.decode(frames)[..., :batch.shape[-1]]
+
+
+def phase_codec_precision(tmp: Path, card: str) -> dict:
+    """SNAC-24k, DAC-44k and Encodec-24k loaded from phase_loader's exports
+    through load_snac / load_dac / load_encodec in f32, in the mixed mode
+    (decoder_dtype=bf16) and in the bf16 mode (compute_dtype=bf16): the
+    served 4 x 10 s batch in each. The mixed mode's codes must be the f32
+    mode's bit for bit; the bf16 mode's share of equal codes is printed (JAX
+    promises equality only for the mixed mode). The decoded audio's SNR
+    against the f32 mode's, the warm round trip's ms by CUDA events in each
+    mode, and the kernels' launches a round trip, equal in every mode (the
+    modes hand the kernels f32)."""
+    from neuralcodecs_tpu_torch import load_dac, load_encodec, load_snac
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    families = {"snac": (load_snac, "snac_24khz"), "dac": (load_dac, "dac_44khz"),
+                "encodec": (load_encodec, "encodec_24khz")}
+    t_phase = time.perf_counter()
+    res, total, ok = {}, dict(_NO_LAUNCHES), True
+    for name, (load, dirname) in families.items():
+        models = {"f32": load(str(tmp / dirname), device=DEVICE).eval()}
+        for mode, key in CODEC_MODES.items():
+            models[mode] = load(str(tmp / dirname), device=DEVICE, **{key: BF16}).eval()
+        sr = models["f32"].config.sample_rate
+        batch = (0.3 * np.random.default_rng(SEED + 30).standard_normal(
+            (4, 10 * sr))).astype(np.float32)
+        out, per_call, ms = {}, {}, {}
+        for mode, model in models.items():
+            kernels.reset_launch_counts()
+            out[mode] = _codec_roundtrip(name, model, batch)
+            torch.cuda.synchronize()
+            per_call[mode] = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            ms[mode] = time_ms(lambda: _codec_roundtrip(name, model, batch), 3, 1)
+            for k, n in kernels.launch_counts().items():
+                total[k] += n + per_call[mode][k]
+        codes32, audio32 = out["f32"]
+        fam = {"ms": ms, "launches_a_call": per_call["f32"]}
+        for mode in CODEC_MODES:
+            codes, audio = out[mode]
+            equal = sum(int((a == b).sum()) for a, b in zip(codes, codes32, strict=True))
+            count = sum(c.numel() for c in codes32)
+            fam[mode] = {"codes_equal": equal, "codes": count, "share_equal": equal / count,
+                         "dtype": str(audio.dtype),
+                         "snr_db": _snr_db(audio32.cpu().numpy().ravel(),
+                                           audio.cpu().numpy().ravel())}
+            print(f"    {name} {mode}: codes equal to f32's {equal}/{count} "
+                  f"({equal / count:.4%}), audio {fam[mode]['snr_db']:.1f} dB from f32, "
+                  f"round trip {ms[mode]:.2f} ms (f32 {ms['f32']:.2f} ms) on {card}")
+        fam_ok = (fam["mixed"]["share_equal"] == 1.0
+                  and all(per_call[m] == per_call["f32"] for m in models)
+                  and sum(per_call["f32"].values()) > 0
+                  and all(fam[m]["dtype"] == "torch.float32" for m in CODEC_MODES))
+        ok = ok and fam_ok
+        res[name] = fam
+        del models
+    torch.cuda.empty_cache()
+    res["counts"], res["seconds"] = total, time.perf_counter() - t_phase
+    phase("codec precision", ok,
+          "4 x 10 s round trips, loaded through load_* in each mode: mixed codes == f32 "
+          "codes: " + ", ".join(f"{n} {res[n]['mixed']['share_equal'] == 1.0}"
+                                for n in families)
+          + "; bf16 codes equal: " + ", ".join(f"{n} {res[n]['bf16']['share_equal']:.4%}"
+                                               for n in families)
+          + "; ms f32 / mixed / bf16: " + ", ".join(
+              f"{n} {res[n]['ms']['f32']:.2f} / {res[n]['ms']['mixed']:.2f} / "
+              f"{res[n]['ms']['bf16']:.2f}" for n in families)
+          + f"; launches a round trip equal in every mode; {res['seconds']:.1f} s on {card}")
     return res
 
 
@@ -3632,10 +3988,33 @@ def _entry(name: str, source: str, replaces: str, launches: dict, res: dict) -> 
             **{k: res[k] for k in ("bound_f32_ms", "floor_ms") if k in res}}
 
 
+PHASES = ("dia_bf16", "codec_precision")
+
+
+def _precision_phases(tmp: Path, dac_dir: Path, card: str, selected=PHASES) -> dict:
+    """The precision phases of ``selected``, after the setup that writes
+    their exports."""
+    t0 = time.time()
+    res = {}
+    if "dia_bf16" in selected:
+        res["dia_bf16"] = phase_dia_bf16(tmp, dac_dir, card)
+    if "codec_precision" in selected:
+        res["codec_precision"] = phase_codec_precision(tmp, card)
+    res["seconds"] = time.time() - t0
+    print(f"    precision phases: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape details here (JSON)")
+    parser.add_argument("--phases", help="comma-separated, of " + ", ".join(PHASES)
+                        + ": run only these, after the device, build and export phases "
+                        "they need; prints no kernels line")
     args = parser.parse_args()
+    selected = args.phases.split(",") if args.phases else None
+    if selected and not set(selected) <= set(PHASES):
+        parser.error(f"--phases: {args.phases} is not a list of {', '.join(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -3646,6 +4025,20 @@ def main() -> int:
             tmp = Path(tmp_dir)
             info = phase_device()
             built = phase_build()
+            if selected:
+                dac_dir = phase_loader(tmp, info["smi"])[3]
+                if "dia_bf16" in selected:
+                    _dia_from_export(tmp, info["smi"])
+                torch.cuda.empty_cache()
+                res = _precision_phases(tmp, dac_dir, info["smi"], selected)
+                if args.out:
+                    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+                    Path(args.out).write_text(json.dumps(
+                        {"device": info, "build": built, **res,
+                         "seconds": time.time() - t_start}, indent=1, default=str))
+                print(f"chip_smoke: {args.phases} passed, {time.time() - t_start:.1f} s on "
+                      f"{info['smi']}")
+                return 0
             gen = torch.Generator(device=DEVICE).manual_seed(SEED)
             cb = phase_codebook(gen)
             # the served SNAC-24k, Encodec-24k and DAC-44k, loaded from exports
@@ -3683,12 +4076,16 @@ def main() -> int:
             dia_serve["dia_phases_s"] = time.time() - t_dia
             print(f"    dia phases: {dia_serve['dia_phases_s']:.1f} s")
             loader["dia_1.6b"] = dia_serve["loaded"]
+            precision = _precision_phases(tmp, dac_dir, info["smi"])
+            dia_bf16, codec_precision = precision["dia_bf16"], precision["codec_precision"]
+            dia_bf16["precision_phases_s"] = precision["seconds"]
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     paths = (serve, snac_http, enc_serve, enc48, stream, lm_coding, enc_http, dsp, loud,
-             dac_serve, dac_http, dac_train, dia_serve, dia_serve["http"])
+             dac_serve, dac_http, dac_train, dia_serve, dia_serve["http"], dia_bf16,
+             codec_precision)
     launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
     lstm["rows"] += stream["lstm_rows"]
     cb["rows"] += stream["codebook_rows"]
@@ -3712,7 +4109,8 @@ def main() -> int:
              "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "dac_train": dac_train,
              "loader": loader,
              "dia_golden": dia_golden,
-             "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve}, indent=1, default=str))
+             "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve, "dia_bf16": dia_bf16,
+             "codec_precision": codec_precision}, indent=1, default=str))
     print(info["smi"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

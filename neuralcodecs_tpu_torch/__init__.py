@@ -25,12 +25,14 @@ read, streaming generation, and the DAC vocoder bridge), and the loader:
 Importing the package turns TF32 off for cuDNN and cuBLAS (both flags of
 ``ops.precision``): one TF32 pass keeps about three digits and flips
 near-tie RVQ codes, where the JAX package's f32 path runs its contractions
-at ``Precision.HIGH``.
+at ``Precision.HIGH``. It also makes cuBLAS reduce bf16 products in f32,
+as the JAX package's bf16 products accumulate.
 """
 
-from neuralcodecs_tpu_torch.ops.precision import disable_tf32
+from neuralcodecs_tpu_torch.ops.precision import disable_bf16_reduced_reduction, disable_tf32
 
 disable_tf32()
+disable_bf16_reduced_reduction()
 
 from neuralcodecs_tpu_torch.core.export import load_pretrained, save_pretrained  # noqa: E402
 from neuralcodecs_tpu_torch.core.loader import (  # noqa: E402

@@ -16,9 +16,8 @@ as argparse subcommands:
 
 Where it differs from the JAX CLI: every subcommand that builds a model
 takes ``--device`` (default ``cuda``; ``--device cpu`` runs on the CPU, and
-nothing falls back to it unasked); Dia's ``--dtype`` defaults to ``f32``,
-and ``bf16`` raises NotImplementedError until the port has its bf16 mode;
-there is no ``bench`` subcommand until the port has its benchmark.
+nothing falls back to it unasked); there is no ``bench`` subcommand until
+the port has its benchmark.
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ def _load_codec(codec: str, model_path: str | None, preset: str | None,
     return classes[codec](config, device=device).eval()
 
 
-def _load_dia_cli(model_path: str | None, dtype: str = "f32",
+def _load_dia_cli(model_path: str | None, dtype: str = "bf16",
                   int8: bool = False, int4: bool = False,
                   kv_int8: bool = False, kv_dot_int8: bool = False,
                   dac_model: str | None = None, device: str = "cuda"):
@@ -67,7 +66,6 @@ def _load_dia_cli(model_path: str | None, dtype: str = "f32",
     import torch
 
     from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
-    from neuralcodecs_tpu_torch.models.dia.model import check_compute_dtype
 
     # Reject bad flag combinations BEFORE the 1.6B checkpoint load, not after.
     if int4 and int8:
@@ -77,10 +75,8 @@ def _load_dia_cli(model_path: str | None, dtype: str = "f32",
     if kv_dot_int8 and not kv_int8:
         raise SystemExit("error: --kv-dot-int8 requires --kv-int8 "
                          "(it reads the int8 cache without dequantizing)")
-    # f32 is the default: the port has no bf16 mode yet, and full-size f32
-    # Dia fits one H100 (about 9 GB at its peak while serving)
+    # bf16 is the serving default, as in the JAX CLI
     tdtype = torch.float32 if dtype == "f32" else torch.bfloat16
-    check_compute_dtype(tdtype)
     if model_path:
         from neuralcodecs_tpu_torch.core.loader import load_dia
 
@@ -468,9 +464,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "latency; skips the slowdown resample)")
     tts.add_argument("--segment-tokens", type=int, default=64,
                      help="decode-loop steps per streamed segment")
-    tts.add_argument("--dtype", choices=["bf16", "f32"], default="f32",
-                     help="Dia compute dtype (default f32; bf16 is not "
-                          "ported yet and raises)")
+    tts.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     tts.add_argument("--int8", action="store_true",
                      help="weight-only int8")
     tts.add_argument("--int4", action="store_true",
@@ -503,9 +497,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--preset")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8799)
-    sv.add_argument("--dtype", choices=["bf16", "f32"], default="f32",
-                    help="Dia compute dtype (default f32; bf16 is not "
-                         "ported yet and raises)")
+    sv.add_argument("--dtype", choices=["bf16", "f32"], default="bf16",
+                    help="Dia compute dtype (serving default bf16)")
     sv.add_argument("--int8", action="store_true",
                     help="Dia weight-only int8")
     sv.add_argument("--int4", action="store_true",

@@ -221,7 +221,8 @@ class ModelLoader(EventEmitter):
 def load_model(architecture: str, source: str, config: Any | None = None,
                options: LoadOptions | None = None, **kwargs: Any) -> Any:
     """Load ``architecture`` from ``source``; ``kwargs`` (``device=``,
-    ``seed=``) go to the model's factory."""
+    ``seed=``, the precision modes' ``compute_dtype=`` / ``decoder_dtype=``)
+    go to the model's factory."""
     return ModelLoader().load(architecture, source, config, options, **kwargs)
 
 

@@ -16,7 +16,15 @@ Module and parameter names follow the descript checkpoint (``encoder.block``,
 checkpoint loads with ``load_state_dict(strict=True)``. Every residual unit
 is dense (groups = 1): on a CUDA device the 24 units of a DAC-44k forward run
 the dense residual-unit kernel and every RVQ stage the codebook kernel. The
-round trip runs unchunked; the bf16 modes are not ported yet.
+round trip runs unchunked.
+
+Precision modes, as in the JAX package: the encoder takes its input in
+``compute_dtype``, each RVQ stage's z_e goes to f32, and the decoder takes
+z_q in ``decoder_dtype`` (default ``compute_dtype``, default f32) and gives
+f32 audio. ``decoder_dtype=torch.bfloat16`` alone is the mixed mode, whose
+codes are the f32 mode's. Parameters stay f32; each conv casts its weight
+to its input's dtype, and the first biased conv of a stage promotes to f32
+(ops/conv.py), so the kernels see f32 only.
 
 Training: ``_forward_fn`` and ``forward_train`` (quantizer dropout) are
 differentiable. The straight-through estimator passes z_e's gradient to the
@@ -135,7 +143,7 @@ class VectorQuantizer(nn.Module):
     def forward(self, z: torch.Tensor):
         """z [B, C, T] -> (z_q [B, C, T], commit [B], codebook_loss [B],
         codes [B, T], z_e [B, D, T])."""
-        z_e = self.in_proj(z)
+        z_e = self.in_proj(z).to(torch.float32)
         codes, z_q = self.quantize(z_e)
         # the commitment loss trains the encoder only, the codebook loss the
         # codebook only; the straight-through output passes z_e's gradient
@@ -222,9 +230,13 @@ class DAC(CodecWeights, nn.Module):
     on ``device``, "cuda" when none is given."""
 
     def __init__(self, config: DACConfig | None = None, *,
-                 device: torch.device | str | None = None, seed: int = 0):
+                 device: torch.device | str | None = None, seed: int = 0,
+                 compute_dtype: torch.dtype | None = None,
+                 decoder_dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config or DACConfig()
+        self.compute_dtype = compute_dtype or torch.float32
+        self.decoder_dtype = decoder_dtype or self.compute_dtype
         self.hop_length = self.config.hop_length
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -239,10 +251,19 @@ class DAC(CodecWeights, nn.Module):
 
     # ----------------------------------------------------------------- compute
 
+    def _encode_fn(self, audio: torch.Tensor, n_quantizers: int | None):
+        """The encoder on padded [B, 1, T] audio in ``compute_dtype``, then
+        the RVQ: (z_q, codes, latents, commitment loss, codebook loss)."""
+        return self.quantizer(self.encoder(audio.to(self.compute_dtype)), n_quantizers)
+
+    def _decode_fn(self, z_q: torch.Tensor) -> torch.Tensor:
+        """The decoder on z_q [B, C, T] in ``decoder_dtype``; f32 audio."""
+        return self.decoder(z_q.to(self.decoder_dtype)).to(torch.float32)
+
     def _forward_fn(self, audio: torch.Tensor, n_quantizers: int | None) -> dict[str, Any]:
         """Round trip on padded [B, 1, T] audio; internal [B, C, T] layouts."""
-        z_q, codes, latents, commit, cb = self.quantizer(self.encoder(audio), n_quantizers)
-        return {"audio": self.decoder(z_q), "z": z_q, "codes": codes, "latents": latents,
+        z_q, codes, latents, commit, cb = self._encode_fn(audio, n_quantizers)
+        return {"audio": self._decode_fn(z_q), "z": z_q, "codes": codes, "latents": latents,
                 "vq/commitment_loss": commit, "vq/codebook_loss": cb}
 
     def draw_dropout_mask(self, batch: int, generator: torch.Generator | None = None
@@ -265,7 +286,7 @@ class DAC(CodecWeights, nn.Module):
         ``quantizer_dropout`` share of the rows trains with a random count
         of active stages (``draw_dropout_mask``, from ``generator``, a CPU
         generator)."""
-        z = self.encoder(audio)
+        z = self.encoder(audio.to(self.compute_dtype))
         mask = self.draw_dropout_mask(audio.shape[0], generator)
         z_q, codes, latents, commit, cb = self.quantizer(z, None, mask)
         return {"audio": self.decoder(z_q), "z": z_q, "codes": codes, "latents": latents,
@@ -302,15 +323,14 @@ class DAC(CodecWeights, nn.Module):
     def encode(self, audio, n_quantizers: int | None = None):
         """Returns (z_q [B, T, C], codes [B, Nq, T], latents [B, T, Nq·D],
         commitment loss, codebook loss)."""
-        z_q, codes, latents, commit, cb = self.quantizer(
-            self.encoder(self._prepare(audio)[0]), n_quantizers)
+        z_q, codes, latents, commit, cb = self._encode_fn(self._prepare(audio)[0], n_quantizers)
         return z_q.transpose(1, 2), codes, latents.transpose(1, 2), commit, cb
 
     @torch.no_grad()
     def decode(self, z_q) -> torch.Tensor:
         """Latents [B, T, C] -> audio [B, T·hop]."""
         z_q = torch.as_tensor(z_q, dtype=torch.float32, device=self.device)
-        return self.decoder(z_q.transpose(1, 2).contiguous())[:, 0]
+        return self._decode_fn(z_q.transpose(1, 2).contiguous())[:, 0]
 
     @torch.no_grad()
     def from_codes(self, codes) -> torch.Tensor:
@@ -318,14 +338,14 @@ class DAC(CodecWeights, nn.Module):
         codes = torch.as_tensor(codes, dtype=torch.int32, device=self.device)
         if codes.dim() == 2:
             codes = codes[None]
-        return self.decoder(self.quantizer.from_codes(codes))[:, 0]
+        return self._decode_fn(self.quantizer.from_codes(codes))[:, 0]
 
     @torch.no_grad()
     def from_latents(self, latents) -> torch.Tensor:
         """Latents [B, T, Σ D_i] (the stages' z_e) -> audio [B, T·hop]."""
         latents = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
         z_q, _ = self.quantizer.from_latents(latents.transpose(1, 2))
-        return self.decoder(z_q)[:, 0]
+        return self._decode_fn(z_q)[:, 0]
 
     def encode_to_file(self, audio, path) -> None:
         """Encode audio and write the codes and config as a .dac artifact."""

@@ -58,11 +58,15 @@ def sdpa_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, T, Nq, Dh]; k/v: [B, S, Nkv, Dh]; mask: [B, T, S] bool
     (True = attend), shared across heads. Returns [B, T, Nq, Dh]. A row with
     every key masked gives zeros: the CFG batch's unconditional rows are all
-    padding, so their encoder and cross-attention rows are such rows."""
+    padding, so their encoder and cross-attention rows are such rows.
+
+    The scores and the softmax are f32 whatever q's dtype (the JAX
+    package's ``preferred_element_type=f32``); the weights go to q's dtype
+    for the weighted sum."""
     b, t, nq, dh = q.shape
     nkv = k.shape[2]
     q = q.reshape(b, t, nkv, nq // nkv, dh)
-    logits = torch.einsum("btkgd,bskd->bkgts", q, k) * scale
+    logits = torch.einsum("btkgd,bskd->bkgts", _f32(q), _f32(k)) * scale
     if mask is not None:
         logits = torch.where(mask[:, None, None, :, :], logits, -math.inf)
     weights = torch.nan_to_num(torch.softmax(logits, dim=-1)).to(q.dtype)
@@ -77,7 +81,15 @@ class DenseGeneral(nn.Module):
     ``weight_q8`` (int8) + ``weight_scale`` (per output), or
     ``quantize_int4`` with ``weight_q4`` (two int4 a byte along the
     contracted dim) + ``weight_scale4`` (per group of input rows and
-    output). The names are the JAX package's parameter keys."""
+    output). The names are the JAX package's parameter keys.
+
+    The product runs in the input's dtype, the weight cast to it as the JAX
+    package casts it at each use. For an input of another dtype than the
+    weight (bf16 against the f32 parameter) the cast weight is kept on the
+    module and made again only when the weight's storage or in-place version
+    changes: casting Dia's 1.6 G parameters at every decode step would move
+    more bytes than the step's products read. The copy is no parameter or
+    buffer, so state dicts and exports hold the f32 weight alone."""
 
     def __init__(self, in_shapes: tuple[int, ...], out_features: tuple[int, ...],
                  device: torch.device | None = None):
@@ -92,13 +104,25 @@ class DenseGeneral(nn.Module):
         with torch.no_grad():
             self.weight.normal_(0.0, 1.0, generator=generator).mul_(std)
 
+    def _weight_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """``weight.to(dtype)``, kept until the weight changes (keyed on its
+        storage and in-place version, as ``ops/kernels/resunit._packed``)."""
+        w = self.weight
+        if w.dtype == dtype:
+            return w
+        key = (w.data_ptr(), w._version, dtype)
+        cached = self.__dict__.get("_cast")
+        if cached is None or cached[0] != key:
+            cached = self._cast = (key, w.detach().to(dtype))
+        return cached[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if "weight_q4" in self._buffers:
             return self._int4_matmul(x)
         if "weight_q8" in self._buffers:
             w = self.weight_q8.to(x.dtype) * self.weight_scale.to(x.dtype)
         else:
-            w = self.weight.to(x.dtype)
+            w = self._weight_as(x.dtype)
         n_in = len(self.in_shapes)
         return torch.tensordot(x, w, dims=(list(range(x.dim() - n_in, x.dim())),
                                            list(range(n_in))))
@@ -113,6 +137,7 @@ class DenseGeneral(nn.Module):
         q8 = torch.clamp(torch.round(w / torch.clamp(scale, min=1e-12)), -127, 127)
         del w
         del self.weight
+        self.__dict__.pop("_cast", None)
         self.register_buffer("weight_q8", q8.to(torch.int8))
         self.register_buffer("weight_scale", scale)
 
@@ -137,6 +162,7 @@ class DenseGeneral(nn.Module):
         del wg
         packed = ((q[0::2] & 0xF) | ((q[1::2] & 0xF) << 4)).to(torch.uint8)
         del self.weight
+        self.__dict__.pop("_cast", None)
         self.register_buffer("weight_q4", packed.view(torch.int8))
         self.register_buffer("weight_scale4", scale[:, 0, :])
 

@@ -207,15 +207,6 @@ def _bucket(requested: int, ceiling: int) -> int:
     return min(pad, max(ceiling, requested))
 
 
-def check_compute_dtype(compute_dtype: torch.dtype) -> None:
-    """Raise NotImplementedError for a compute dtype the port lacks: only
-    f32 and the f64 reference mode are ported."""
-    if compute_dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"Dia compute_dtype {compute_dtype}: only torch.float32 (and torch.float64, "
-            "the reference mode) is ported; the bf16 modes are ROADMAP section 1 item 4")
-
-
 class Dia(nn.Module):
     """Public Dia TTS model.
 
@@ -224,17 +215,23 @@ class Dia(nn.Module):
     drawn on ``device`` ("cuda" when none is given) by one generator, until
     ``load_state_dict`` loads a checkpoint.
 
-    ``compute_dtype`` is torch.float32, the JAX package's default, or
-    torch.float64: a reference mode that holds the parameters, activations
-    and caches in f64 to measure the f32 model's rounding. The sampler
-    takes f32 logits in both; int8 weights and KV codes are quantized from
-    f32 values and dequantized to the compute dtype."""
+    ``compute_dtype`` is torch.float32, the JAX package's default;
+    torch.bfloat16, its serving mode: parameters stay f32 (each
+    DenseGeneral keeps a bf16 copy of its weight), activations and the
+    self-attention caches are bf16, attention scores, norms and RoPE f32;
+    or torch.float64: a reference mode that holds the parameters,
+    activations and caches in f64 to measure the other modes' rounding. The
+    sampler takes f32 logits in all three; int8 weights and KV codes are
+    quantized from f32 values and dequantized to the compute dtype."""
 
     def __init__(self, config: DiaConfig | None = None, *,
                  device: torch.device | str | None = None, seed: int = 0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_compute_dtype(compute_dtype)
+        if compute_dtype not in (torch.bfloat16, torch.float32, torch.float64):
+            raise NotImplementedError(
+                f"Dia compute_dtype {compute_dtype}: the modes are torch.bfloat16, "
+                "torch.float32 and torch.float64 (the reference mode)")
         self.config = config or DiaConfig()
         self.compute_dtype = compute_dtype
         device = resolve_device(device)

@@ -19,6 +19,15 @@ streaming sessions of the causal 24 kHz model are in streaming.py.
 
 Public layouts are the JAX package's: audio [T], [C, T] or [B, C, T] in,
 [B, C, T] out; codes [B, n_q, frames].
+
+Precision modes, as in the JAX package: each chunk, normalised in f32, goes
+to the encoder in ``compute_dtype``; the RVQ takes f32; the decoder takes
+the dequantised latents in ``decoder_dtype`` (default ``compute_dtype``,
+default f32) and gives f32 audio. ``decoder_dtype=torch.bfloat16`` alone is
+the mixed mode, whose codes are the f32 mode's. Parameters stay f32; each
+conv casts its weight to its input's dtype and the first biased conv of a
+stage promotes to f32 (ops/conv.py), so the SLSTM and the kernels see f32.
+The streaming sessions and the LM path run in f32, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -81,8 +90,12 @@ class Encodec(CodecWeights, nn.Module):
     when none is given."""
 
     def __init__(self, config: EncodecConfig | None = None, *,
-                 device: torch.device | str | None = None, seed: int = 0):
+                 device: torch.device | str | None = None, seed: int = 0,
+                 compute_dtype: torch.dtype | None = None,
+                 decoder_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype or torch.float32
+        self.decoder_dtype = decoder_dtype or self.compute_dtype
         self.config = cfg = config or EncodecConfig()
         if cfg.bandwidth is not None and cfg.bandwidth not in cfg.target_bandwidths:
             raise CodecError(f"Invalid bandwidth {cfg.bandwidth}. "
@@ -166,11 +179,13 @@ class Encodec(CodecWeights, nn.Module):
     def _encode_frame(self, x: torch.Tensor, n_q: int) -> EncodedFrame:
         """x [N, C, T] -> codes [N, n_q, frames], scale [N, 1] | None."""
         x, scale = self._normalize(x)
-        return EncodedFrame(self.quantizer.encode(self.encoder(x), n_q), scale)
+        emb = self.encoder(x.to(self.compute_dtype)).to(torch.float32)
+        return EncodedFrame(self.quantizer.encode(emb, n_q), scale)
 
     def _decode_frame(self, codes: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
         """codes [N, n_q, frames] -> audio [N, C, T]."""
-        out = self.decoder(self.quantizer.decode(codes))
+        emb = self.quantizer.decode(codes).to(self.decoder_dtype)
+        out = self.decoder(emb).to(torch.float32)
         return out if scale is None else out * scale[:, :, None]
 
     # ------------------------------------------------------------- public API

@@ -290,9 +290,14 @@ class SLSTM(nn.Module):
         h_f, c_f = [], []
         for n in range(self.lstm.num_layers):
             w_ih, w_hh, b_ih, b_hh = self.lstm.layer(n)
-            # the input projection for the whole sequence: [T, B, 4H]
-            gates_x = torch.matmul(out, w_ih.t()) + (b_ih + b_hh)
-            out, h, c = lstm_scan(gates_x.contiguous(), w_hh, state[0][n], state[1][n])
+            # the weights in the activations' dtype, as the JAX package's SLSTM
+            # takes them (f32 under its precision modes: the conv before the
+            # SLSTM has promoted); the input projection for the whole
+            # sequence: [T, B, 4H]
+            dtype = out.dtype
+            gates_x = torch.matmul(out, w_ih.to(dtype).t()) + (b_ih + b_hh).to(dtype)
+            out, h, c = lstm_scan(gates_x.contiguous(), w_hh.to(dtype), state[0][n],
+                                  state[1][n])
             h_f.append(h)
             c_f.append(c)
         out = out.permute(1, 2, 0)                                  # [B, H, T]

@@ -8,6 +8,11 @@ Activations are [B, C, T].
 
 Modules that draw decoder noise take a ``torch.Generator`` (or None for the
 noise-free path); ``Sequential`` hands it to the children that take one.
+
+Each module computes in its input's dtype, as in the JAX package: convs
+cast their weight to it and add their f32 bias after (ops/conv.py), Snake
+casts α, NoiseBlock draws its noise in it. ``ResidualUnit`` hands its input
+to the fused kernel, which takes f32 only (ops/kernels/resunit.py).
 """
 
 from __future__ import annotations

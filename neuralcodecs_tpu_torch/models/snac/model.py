@@ -14,6 +14,15 @@ Module and parameter names follow the upstream checkpoint (``encoder.block``,
 the JAX package's chunked execution is a TPU speed mechanism and is not
 ported. On a CUDA device the 24 residual units (SNAC-24k) run the fused
 residual-unit kernel and every RVQ stage runs the codebook kernel.
+
+Precision modes, as in the JAX package: the encoder takes its input in
+``compute_dtype``, the RVQ runs in f32, and the decoder takes z_q in
+``decoder_dtype`` (default ``compute_dtype``, default f32); the output is
+f32. ``decoder_dtype=torch.bfloat16`` alone is the mixed mode, whose codes
+are the f32 mode's. Parameters stay f32 and each conv casts its weight to
+its input's dtype, so under the JAX semantics only the first conv of a
+stage runs in bf16: its f32 bias promotes the sum (ops/conv.py), and the
+kernels always see f32.
 """
 
 from __future__ import annotations
@@ -140,7 +149,7 @@ class VectorQuantizer(nn.Module):
         if self.stride > 1:
             b, c, t = z.shape
             z = z.reshape(b, c, t // self.stride, self.stride).mean(dim=-1)
-        z_e = self.in_proj(z)                                         # [B, D, T']
+        z_e = self.in_proj(z).to(torch.float32)                       # [B, D, T']
         codebook = self.codebook.weight
         codes = cosine_argmin_codes(z_e.transpose(1, 2), codebook)   # [B, T']
         z_q = codebook_lookup(codes, codebook).transpose(1, 2)
@@ -193,9 +202,13 @@ class SNAC(CodecWeights, nn.Module):
     on ``device``, "cuda" when none is given."""
 
     def __init__(self, config: SNACConfig | None = None, *,
-                 device: torch.device | str | None = None, seed: int = 0):
+                 device: torch.device | str | None = None, seed: int = 0,
+                 compute_dtype: torch.dtype | None = None,
+                 decoder_dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config or SNACConfig()
+        self.compute_dtype = compute_dtype or torch.float32
+        self.decoder_dtype = decoder_dtype or self.compute_dtype
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.encoder = Encoder(self.config)
@@ -209,19 +222,27 @@ class SNAC(CodecWeights, nn.Module):
 
     # ----------------------------------------------------------------- compute
 
+    def _encoder_out(self, audio: torch.Tensor) -> torch.Tensor:
+        """The encoder on audio in ``compute_dtype``; the RVQ's input in f32."""
+        return self.encoder(audio.to(self.compute_dtype)).to(torch.float32)
+
+    def _run_decoder(self, z_q: torch.Tensor, generator: torch.Generator | None
+                     ) -> torch.Tensor:
+        """The decoder on z_q in ``decoder_dtype``; the audio in f32."""
+        return self.decoder(z_q.to(self.decoder_dtype), generator).to(torch.float32)
+
     def _forward_fn(self, audio: torch.Tensor, generator: torch.Generator | None
                     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
         """Round trip on padded [B, 1, T] audio -> ([B, 1, T], codes)."""
-        z = self.encoder(audio)
-        z_q, codes = self.quantizer(z)
-        return self.decoder(z_q, generator), codes
+        z_q, codes = self.quantizer(self._encoder_out(audio))
+        return self._run_decoder(z_q, generator), codes
 
     def _encode_fn(self, audio: torch.Tensor) -> list[torch.Tensor]:
-        return self.quantizer(self.encoder(audio))[1]
+        return self.quantizer(self._encoder_out(audio))[1]
 
     def _decode_fn(self, codes: Sequence[torch.Tensor],
                    generator: torch.Generator | None) -> torch.Tensor:
-        return self.decoder(self.quantizer.from_codes(codes), generator)
+        return self._run_decoder(self.quantizer.from_codes(codes), generator)
 
     # ------------------------------------------------------------- public API
 

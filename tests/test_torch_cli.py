@@ -1,16 +1,17 @@
 """The port's CLI (``neuralcodecs-torch``) against the JAX package's, on the CPU.
 
 ``build_parser()`` has the JAX parser's subcommands, options, defaults and
-choices apart from three divergences, which ``test_parser_matches_jax``
-names: ``--device`` on every subcommand that builds a model, Dia's
-``--dtype`` defaulting to ``f32``, and no ``bench``. ``visualize`` gives the
+choices apart from two divergences, which ``test_parser_matches_jax``
+names: ``--device`` on every subcommand that builds a model, and no
+``bench``; Dia's ``--dtype`` defaults to ``bf16`` as in the JAX CLI. ``visualize`` gives the
 JAX stats (SNR within 0.01 dB, mel difference within 1e-3) and the same PPM
 headers with pixels within 1. The commands run end to end with
 ``--device cpu`` on tiny models: ``roundtrip`` (with diagnostics and events)
 within 1 LSB of the JAX CLI's WAV on the same weights, ``compress`` raw
 byte-exact to the JAX CLI's and ``--lm`` lossless, ``decompress``,
-``validate``, ``zoo``, and ``tts`` (one-shot and streamed) from saved
-exports equal to a direct ``generate``. The error report has the JAX keys.
+``validate``, ``zoo``, and ``tts`` (one-shot and streamed, f32 and the
+default bf16) from saved exports equal to a direct ``generate``. The error
+report has the JAX keys.
 """
 
 import argparse
@@ -56,7 +57,7 @@ def test_parser_matches_jax_apart_from_the_divergences():
     assert g.pop("command")[3] is w.pop("command")[3] is True  # a subcommand is required
     assert g == w  # --help, --traceback
     got_sub, want_sub = _subparsers(got), _subparsers(want)
-    # divergence 3: no bench until the port has its benchmark
+    # divergence 2: no bench until the port has its benchmark
     assert set(want_sub) - set(got_sub) == {"bench"} and set(got_sub) <= set(want_sub)
     for name, parser in got_sub.items():
         g, w = _options(parser), _options(want_sub[name])
@@ -64,9 +65,8 @@ def test_parser_matches_jax_apart_from_the_divergences():
             # divergence 1: --device, default cuda, no CPU fallback
             assert g.pop("device") == (("--device",), "cuda", None, False, None, None, None)
         if name in ("tts", "serve"):
-            # divergence 2: Dia's --dtype keeps its choices, defaults to f32
-            gd, wd = g.pop("dtype"), w.pop("dtype")
-            assert gd[1] == "f32" and wd[1] == "bf16" and gd[2] == wd[2] == ["bf16", "f32"]
+            # Dia's --dtype: JAX's choices and its bf16 default
+            assert g["dtype"][1] == "bf16" and g["dtype"][2] == ["bf16", "f32"]
         assert g == w, name
         assert parser.get_default("fn").__name__ == want_sub[name].get_default("fn").__name__
         assert parser.get_default("operation") == want_sub[name].get_default("operation")
@@ -82,7 +82,7 @@ def test_parser_subcommands():
     assert args.lm and args.bandwidth == 6.0 and args.device == "cuda"
     args = parser.parse_args(["tts", "--text", "[S1]x", "--output", "t.wav",
                               "--audio-prompt", "voice.wav"])
-    assert args.fn is cli.cmd_tts and args.dtype == "f32" and args.audio_prompt == "voice.wav"
+    assert args.fn is cli.cmd_tts and args.dtype == "bf16" and args.audio_prompt == "voice.wav"
     assert parser.parse_args(["interactive"]).fn is cli.cmd_interactive
     with pytest.raises(SystemExit):
         parser.parse_args(["bench"])
@@ -260,7 +260,7 @@ def test_cli_tts_from_saved_exports(tmp_path, capsys):
     save_pretrained(dac, tmp_path / "dac")
     dia.set_dac_model(dac)
     common = ["--text", "[S1]hi", "--model", str(tmp_path / "dia"), "--dac-model",
-              str(tmp_path / "dac"), "--max-tokens", "12", "--device", "cpu"]
+              str(tmp_path / "dac"), "--max-tokens", "12", "--device", "cpu", "--dtype", "f32"]
     assert cli.main(["tts", "--output", str(tmp_path / "one.wav")] + common) == 0
     want = dia.generate(["[S1]hi"], max_tokens=12)[0]
     expect = tmp_path / "want.wav"
@@ -292,13 +292,44 @@ def test_cli_error_report_matches_jax(tmp_path, capsys):
 
 
 def test_cli_dia_bf16_raises_before_loading(tmp_path, capsys):
-    """--dtype bf16 raises the port's NotImplementedError before any weights
-    load (the --model path does not exist)."""
+    """--dtype bf16 is a mode the port has: what raises, before any weights
+    load, is the --model directory that holds no weights, and no longer the
+    dtype."""
+    (tmp_path / "empty-export").mkdir()
     assert cli.main(["tts", "--text", "x", "--output", str(tmp_path / "o.wav"),
-                     "--model", str(tmp_path / "no-such-export"), "--dtype", "bf16",
+                     "--model", str(tmp_path / "empty-export"), "--dtype", "bf16",
                      "--device", "cpu"]) == 1
     rec = _report(capsys)
-    assert rec["error"] == "NotImplementedError" and "item 4" in rec["message"]
+    assert rec["error"] == "LoadError" and "No model file" in rec["message"]
+
+
+@pytest.mark.parametrize("dtype_args", [[], ["--dtype", "bf16"]])
+def test_cli_tts_bf16_from_a_saved_export(dtype_args, tmp_path, capsys):
+    """tts with the default --dtype, and with --dtype bf16, on a tiny
+    export: the Dia it builds is bf16 and the WAV it writes is a bf16 Dia's
+    direct generate on the same weights."""
+    from neuralcodecs_tpu_torch.core.export import save_pretrained
+    from neuralcodecs_tpu_torch.dsp.signal import AudioSignal
+    from neuralcodecs_tpu_torch.models.dia import Dia
+
+    dia = dia_pair()[1]
+    dac = dia_dac_pair()[1]
+    save_pretrained(dia, tmp_path / "dia")
+    save_pretrained(dac, tmp_path / "dac")
+    built = cli._load_dia_cli(str(tmp_path / "dia"), device="cpu")
+    assert built.compute_dtype == torch.bfloat16
+    bf16 = Dia(dia.config, device="cpu", compute_dtype=torch.bfloat16)
+    bf16.load_state_dict(dia.state_dict())
+    bf16.set_dac_model(dac)
+    out = tmp_path / "one.wav"
+    assert cli.main(["tts", "--text", "[S1]hi", "--model", str(tmp_path / "dia"),
+                     "--dac-model", str(tmp_path / "dac"), "--max-tokens", "12",
+                     "--device", "cpu", "--output", str(out)] + dtype_args) == 0
+    assert "wrote" in capsys.readouterr().out
+    want = tmp_path / "want.wav"
+    AudioSignal(bf16.generate(["[S1]hi"], max_tokens=12)[0], dia.config.sample_rate,
+                device="cpu").write(want)
+    assert out.read_bytes() == want.read_bytes()
 
 
 def test_cli_without_a_card_does_not_fall_back(tmp_path, capsys):

@@ -390,9 +390,10 @@ def test_device_and_unported_modes(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Dia(port_config())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Dia(port_config(), device="cpu", compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    bf16 = Dia(port_config(), device="cpu", compute_dtype=torch.bfloat16)
+    assert bf16.compute_dtype == torch.bfloat16
+    assert all(v.dtype == torch.float32 for v in bf16.state_dict().values())
+    with pytest.raises(NotImplementedError, match="torch.bfloat16"):
         Dia(port_config(), device="cpu", compute_dtype=torch.float16)
     dia = Dia(port_config(), device="cpu")
     with pytest.raises(LoadError, match="not found"):

@@ -427,6 +427,24 @@ def test_import_turns_tf32_off():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_import_turns_bf16_reduced_reduction_off():
+    """A fresh process: torch's default lets cuBLAS reduce bf16 products in
+    bf16; importing the port makes it reduce them in f32, as JAX's bf16
+    products accumulate."""
+    code = ("import torch\n"
+            "assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction\n"
+            "import neuralcodecs_tpu_torch\n"
+            "from neuralcodecs_tpu_torch.ops.precision import "
+            "bf16_reduced_reduction_disabled\n"
+            "assert bf16_reduced_reduction_disabled()\n"
+            "assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction\n"
+            "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 LOADER_MODULES = ("cache", "events", "export", "files", "importer", "interfaces", "loader",
                   "operations", "registry", "repos", "retry", "safetensors_io", "torch_pickle",
                   "validation", "weights", "zoo")
@@ -438,7 +456,8 @@ def test_port_imports_without_jax():
     by name) import with no JAX and nothing of the JAX package; a tiny GAN
     train step runs;
     the CLI parses and runs a command, and an HTTP and a TCP streaming server
-    start on a tiny model and answer, still with no JAX."""
+    start on a tiny model and answer, a tiny bf16 Dia generates and a
+    mixed-mode SNAC round-trips, still with no JAX."""
     code = ("import sys, pkgutil, importlib, neuralcodecs_tpu_torch as p\n"
             "from neuralcodecs_tpu_torch import (load_model, load_snac, load_dac, load_encodec,\n"
             "    load_dia, load_pretrained, save_pretrained, load_zoo_model, zoo_models,\n"
@@ -469,7 +488,7 @@ def test_port_imports_without_jax():
             "from neuralcodecs_tpu_torch.models.encodec import Encodec, EncodecConfig\n"
             "from neuralcodecs_tpu_torch.models.snac import SNAC, SNACConfig\n"
             "args = build_parser().parse_args(['serve', '--codec', 'snac', '--device', 'cpu'])\n"
-            "assert args.device == 'cpu' and args.dtype == 'f32'\n"
+            "assert args.device == 'cpu' and args.dtype == 'bf16'\n"
             "out = __import__('io').StringIO()\n"
             "with __import__('contextlib').redirect_stdout(out):\n"
             "    assert main(['zoo']) == 0\n"
@@ -495,6 +514,21 @@ def test_port_imports_without_jax():
             "assert len(cli.push(__import__('numpy').zeros(64, 'float32'))) == 4 * 64\n"
             "assert cli.close() == b''\n"
             "tcp.shutdown()\n"
+            "from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig\n"
+            "from neuralcodecs_tpu_torch.models.dia.config import (DiaDataConfig,\n"
+            "    DiaDecoderConfig, DiaEncoderConfig)\n"
+            "dia = Dia(DiaConfig(vocab_size=256, tgt_vocab_size=36, data=DiaDataConfig(\n"
+            "    text_length=16, audio_length=32, channels=3, audio_eos_value=32,\n"
+            "    audio_pad_value=33, audio_bos_value=34, delay_pattern=[0, 1, 2]),\n"
+            "    encoder=DiaEncoderConfig(n_layer=1, n_embd=32, n_hidden=64, n_head=2, head_dim=16),\n"
+            "    decoder=DiaDecoderConfig(n_layer=1, n_embd=32, n_hidden=64, gqa_query_heads=4,\n"
+            "    kv_heads=2, gqa_head_dim=8, cross_query_heads=2, cross_head_dim=16)),\n"
+            "    device='cpu', compute_dtype=torch.bfloat16)\n"
+            "codes, lengths = dia.generate_codes(['[S1]x'], max_tokens=8, temperature=0.0)\n"
+            "assert codes.shape[0] == 1 and lengths.shape == (1,)\n"
+            "mixed = SNAC(snac.config, device='cpu', decoder_dtype=torch.bfloat16)\n"
+            "out, mixed_codes = mixed(__import__('numpy').zeros(2048, 'float32'))\n"
+            "assert out.dtype == torch.float32 and mixed.decoder_dtype == torch.bfloat16\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'neuralcodecs_tpu.'))"
             " or m == 'neuralcodecs_tpu']\n"
             "assert not bad, bad\n"
