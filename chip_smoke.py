@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--out details.json] [--phases dia_bf16,codec_precision]
+    python3 chip_smoke.py [--out details.json] [--phases NAME,...]
 
 Builds the port's CUDA kernels from neuralcodecs_tpu_torch/csrc and holds
 each against its plain PyTorch version at the shapes its round trips give
@@ -73,7 +73,22 @@ alternating order, the int8 and int4 ladders at bf16, and the card's bf16
 caches and logits at 2 + 2 layers against the f64 port (an fp8-weight
 control must fail that check); SNAC-24k, DAC-44k and Encodec-24k loaded in
 decoder_dtype=bf16 and compute_dtype=bf16, whose mixed-mode codes must be
-the f32 mode's (--phases runs only these, after the build and exports). The
+the f32 mode's. The parallel phases come last: a world-1 NCCL group and
+2 generator steps of DAC-44k through make_train_step's mesh path, bit for
+bit the mesh=None step's; then one spawn of 2 ranks sharing the card over
+gloo (NCCL refuses two ranks a card), after one-process references: the
+DAC-44k GAN step on dp=2 (8 x 0.5 s, 4 crops a rank) against one process
+under SGD, timed, with the collectives' share; 2 steps on dp=1 x tp=2
+with the weights stored as halves, a checkpoint saved whole and restored
+onto the mesh, one more step; SNAC-24k's time-sharded encode of a 60 s
+clip at sp=2 against the one-process codes; Dia 1.6B tp=2 in f32 and int4
+(teacher-forced logits against the f64 mode within 4 x the one-process
+error, a control with the row-parallel sums dropped outside it, greedy
+codes up to near-ties); Encodec-24k's latents through kmeans to 1024
+entries (kernel 1) and 5 EMA steps on dp=2 against the one-process update
+with the plain search. --phases runs only the named phases (the serving,
+DAC training, precision and parallel ones), after the build and the
+exports they need, and prints no kernels line. The
 real servers then serve the loaded models on 127.0.0.1:0 in background
 threads (cli/serve.py's CodecServer, cli/stream_serve.py's
 StreamingCodecServer; clients on keep-alive http.client connections and
@@ -2052,7 +2067,7 @@ def _train_batch(tmp: Path, sr: int, hop: int) -> tuple[torch.Tensor, float]:
 
     rng = np.random.default_rng(SEED + 30)
     wav_dir = tmp / "train_wavs"
-    wav_dir.mkdir()
+    wav_dir.mkdir(exist_ok=True)
     t = np.arange(3 * sr) / sr
     for i in range(4):
         tone = 0.3 * np.sin(2 * np.pi * rng.uniform(80, 2000) * t)
@@ -2112,7 +2127,7 @@ def _gan_run(model, disc, start: tuple, audio: torch.Tensor, steps: int) -> tupl
     model.load_state_dict(start[0])
     disc.load_state_dict(start[1])
     sgd = functools.partial(torch.optim.SGD, lr=TRAIN_SGD_LR)
-    init_fn, step_fn = make_gan_train_step(model, disc, sgd, sgd)
+    init_fn, step_fn = make_gan_train_step(model, disc, None, sgd, sgd)
     states, metrics, first = init_fn(), [], None
     for i in range(steps):
         states, m = step_fn(states, audio)
@@ -3157,7 +3172,7 @@ def _dia_run(dia, kw: dict, peak: float) -> dict:
 def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
     """Dia 1.6B in bf16, the JAX package's serving mode: loaded through
     load_dia(compute_dtype=torch.bfloat16) from the export _dia_from_export
-    wrote (then deleted), vocoded by the f32 DAC-44k export. Four requests
+    wrote, vocoded by the f32 DAC-44k export. Four requests
     in the 1024 bucket to 128 tokens and a voice-clone prompt of 1 s
     (kernels 1 and 2b run in the DAC's encode and from_codes), with the
     decode step's time by CUDA events and the host's enqueue, device time,
@@ -3167,8 +3182,6 @@ def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
     alternating order (_dia_step_series); the int8 and the int4 ladders at
     bf16 to 64 tokens; then the card's bf16 caches and logits at 2 + 2
     layers against the f64 port (_dia_bf16_card_vs_cpu)."""
-    import shutil
-
     from neuralcodecs_tpu_torch import load_dia
     from neuralcodecs_tpu_torch.models.dia import Dia, DiaConfig
     from neuralcodecs_tpu_torch.models.dia import model as dia_model
@@ -3180,7 +3193,6 @@ def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
     dia = load_dia(str(tmp / "dia"), device=DEVICE, compute_dtype=BF16).eval()
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    shutil.rmtree(tmp / "dia")
     if dia.compute_dtype != BF16 or any(p.dtype != torch.float32 for p in dia.parameters()):
         raise PhaseError("load_dia(compute_dtype=bf16) did not give a bf16 Dia on f32 weights")
     dia.load_dac_model(str(dac_dir))
@@ -3974,6 +3986,808 @@ def phase_dia_http(dia, card: str) -> dict:
     return res
 
 
+# ------------------------------------------------------- parallel phases
+
+
+PARALLEL_PHASES = ("parallel_nccl1", "parallel_train", "parallel_encode", "parallel_dia",
+                   "parallel_codebook")
+PAR_RANKS = 2            # ranks of the spawn, both on the one card, over gloo
+PAR_TRAIN_STEPS = 5      # compared GAN steps (SGD, TRAIN_SGD_LR), as phase_dac_train's
+PAR_TRAIN_TIMED = 10
+# dp=2 against one process: each GAN metric a step within PAR_TRAJ_BAR
+# (relative). phase_dac_train's kernels-vs-plain SGD trajectories agree within
+# 2.6e-6 (on an H100);
+# dp=2 changes only the order of f32 sums (two local means, then one
+# all-reduce of the gradients), a rounding of the same kind and size, so
+# 40 x that is room for it and far below what a dropped or doubled shard
+# gives (a gradient off by a factor of 2). The parameters' change (an SGD
+# step is lr · g) of G and of D, each as one vector, within TRAIN_GRAD_BAR
+# of the one-process change after the first and the last step
+# (phase_dac_train's bar on gradients); each tensor's within PAR_TENSOR_BAR
+# after the first: a Snake alpha's gradient sums B x T terms of both signs,
+# and halving the batch moved one by 5.0e-2 (on an H100), while a
+# tensor whose dp average is dropped or doubled moves by 50-100%. The
+# compared steps, here and in the reference, run deterministic algorithms:
+# across processes cuDNN's default ones may differ (a discriminator
+# tensor's first-step gradient 1.8e-3 apart with every metric equal, on an
+# H100).
+PAR_TRAJ_BAR = 1e-4
+PAR_TENSOR_BAR = 0.1
+PAR_ENCODE_SECONDS = 60  # one long clip: what sp is for
+# Dia's traffic: the 4 requests of DIA_SERVE_KW, greedy, cut from 512 to 32
+# tokens for the phases' time budget
+PAR_DIA_KW = dict(DIA_SERVE_KW, max_tokens=32, temperature=0.0)
+PAR_KMEANS = dict(num_clusters=1024, num_iters=10)
+PAR_EMA_STEPS = 5
+# the dp EMA step against one process on the same codes: the dp sum of
+# embed_sum in another f32 order (1500 rows a rank, then one all-reduce)
+PAR_EMA_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _stable_dac(cfg, audio: torch.Tensor):
+    """(model, seed, sensitivities): the DAC of the first TRAIN_SEEDS seed
+    whose mel gradient is stable on ``audio`` (see _mel_sensitivity)."""
+    from neuralcodecs_tpu_torch.models.dac import DAC
+
+    tried = {}
+    for seed in TRAIN_SEEDS:
+        model = DAC(cfg, device=DEVICE, seed=seed)
+        tried[seed] = _mel_sensitivity(model, audio)
+        if tried[seed] < MEL_STABLE:
+            return model, seed, tried
+    raise PhaseError(f"no candidate seed with a stable mel gradient: {tried}")
+
+
+@contextlib.contextmanager
+def _timed_collectives():
+    """Host time of every all-reduce of the parallel layer, synchronised on
+    both sides (for the collectives' share; it slows what it measures, so
+    the step time comes from an untimed run)."""
+    from neuralcodecs_tpu_torch.parallel import collectives
+
+    inner = collectives.all_reduce_sum
+    spent = {"ms": 0.0, "calls": 0, "bytes": 0}
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(t, group)
+        torch.cuda.synchronize()
+        spent["ms"] += (time.perf_counter() - t0) * 1e3
+        spent["calls"] += 1
+        spent["bytes"] += t.numel() * t.element_size()
+        return out
+
+    collectives.all_reduce_sum = timed
+    try:
+        yield spent
+    finally:
+        collectives.all_reduce_sum = inner
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic CUDA algorithms (index_put's accumulate, cuDNN's
+    backward), so that two runs of one step can be compared bit for bit."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def phase_parallel_nccl1(tmp: Path, card: str) -> dict:
+    """A world-1 NCCL group (make_mesh(dp=1) starts it), and 2 steps of the
+    full-width DAC-44k generator step through the mesh path (placements,
+    the dp mean as an NCCL all-reduce, the mesh's batch slice), against the
+    mesh=None step twice: all three must give the same parameters bit for
+    bit."""
+    import torch.distributed as dist
+
+    from neuralcodecs_tpu_torch.models.dac import DACConfig
+    from neuralcodecs_tpu_torch.parallel import make_mesh, make_train_step
+
+    t0 = time.time()
+    cfg = DACConfig()
+    audio, _ = _train_batch(tmp, cfg.sample_rate, cfg.hop_length)
+    model, seed, _ = _stable_dac(cfg, audio)
+    start = _snapshot(model)
+    sgd = functools.partial(torch.optim.SGD, lr=TRAIN_SGD_LR)
+
+    def run(mesh) -> tuple[dict, list]:
+        model.load_state_dict(start)
+        init_fn, step_fn = make_train_step(model, mesh, sgd)
+        state, losses = init_fn(), []
+        for _ in range(2):
+            state, loss = step_fn(state, audio)
+            losses.append(float(loss))
+        return _snapshot(model), losses
+
+    with _deterministic(), torch.enable_grad():
+        one, one_losses = run(None)
+        again, _ = run(None)
+        mesh = make_mesh(dp=1)
+        backend = dist.get_backend()
+        try:
+            on_mesh, mesh_losses = run(mesh)
+        finally:
+            dist.destroy_process_group()
+    reproducible = all(torch.equal(one[k], again[k]) for k in one)
+    equal = all(torch.equal(one[k], on_mesh[k]) for k in one)
+    res = {"backend": backend, "seed": seed, "reproducible": reproducible, "equal": equal,
+           "losses": one_losses, "mesh_losses": mesh_losses, "seconds": time.time() - t0}
+    phase("parallel nccl world-1 train step", backend == "nccl" and reproducible and equal,
+          f"make_mesh(dp=1) on a world-1 {backend} group; 2 SGD generator steps of full-width "
+          f"DAC-44k at 8 x 0.5 s: the mesh path's {len(one)} tensors equal the mesh=None "
+          f"step's bit for bit: {equal} (mesh=None against itself: {reproducible}); losses "
+          f"{mesh_losses}; {res['seconds']:.1f} s on {card}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _par_train_ref(tmp: Path, card: str) -> dict:
+    """The one-process reference of phase_parallel_train: PAR_TRAIN_STEPS
+    SGD GAN steps of full-width DAC-44k and DACDiscriminator() on the
+    training batch; metrics of each step, parameters after steps 1, 2 and
+    PAR_TRAIN_STEPS, saved for the ranks."""
+    from neuralcodecs_tpu_torch.models.dac import DACConfig
+    from neuralcodecs_tpu_torch.models.dac.discriminator import DACDiscriminator
+    from neuralcodecs_tpu_torch.parallel import make_gan_train_step
+
+    cfg = DACConfig()
+    audio, seconds = _train_batch(tmp, cfg.sample_rate, cfg.hop_length)
+    model, seed, _ = _stable_dac(cfg, audio)
+    disc = DACDiscriminator(device=DEVICE, seed=SEED + 24)
+    sgd = functools.partial(torch.optim.SGD, lr=TRAIN_SGD_LR)
+    init_fn, step_fn = make_gan_train_step(model, disc, None, sgd, sgd)
+    states, metrics, params = init_fn(), [], {}
+    t0 = time.perf_counter()
+    with torch.enable_grad(), _deterministic():
+        for i in range(1, PAR_TRAIN_STEPS + 1):
+            states, m = step_fn(states, audio)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i in (1, 2, PAR_TRAIN_STEPS):
+                params[i] = {**{f"g.{k}": v.cpu() for k, v in _snapshot(model).items()},
+                             **{f"d.{k}": v.cpu() for k, v in _snapshot(disc).items()}}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / PAR_TRAIN_STEPS
+    path = tmp / "parallel_train_ref.pt"
+    torch.save({"metrics": metrics, "params": params}, path)
+    del model, disc, states
+    torch.cuda.empty_cache()
+    return {"seed": seed, "audio": audio.cpu().numpy(), "audio_s": seconds, "ref": str(path),
+            "one_process_ms": ms}
+
+
+def _par_dia_run(dia, kw: dict) -> dict:
+    """Greedy codes of DIA_TEXTS with the sampler's logits of every step."""
+    from neuralcodecs_tpu_torch.models.dia import model as dia_model
+
+    sampler, logits = dia_model._sample_next_token, []
+
+    def recorded(lg, *args, **kwargs):
+        logits.append(lg.detach().float().cpu())
+        return sampler(lg, *args, **kwargs)
+
+    dia_model._sample_next_token = recorded
+    try:
+        codes, lengths = dia.generate_codes(DIA_TEXTS, **kw)
+    finally:
+        dia_model._sample_next_token = sampler
+    return {"codes": np.asarray(codes), "lengths": np.asarray(lengths), "logits": logits}
+
+
+@torch.no_grad()
+def _q_scaled(dia):
+    """Each q projection scaled by 1/sqrt(head_dim), as a trained Dia folds
+    it (every DiaConfig() attention has 128-wide heads): with unit-scale q
+    and k the scores spread by sqrt(128) ~ 11, near one-hot, and at 12 + 18
+    random-weight layers the f32 run lies 3.0 from the f64 one at logits of
+    4.7 (on an H100): no gate could see a fault through that."""
+    for name, p in dia.named_parameters():
+        if name.endswith("q_proj.weight"):
+            p.mul_(dia.config.decoder.gqa_head_dim ** -0.5)
+    return dia
+
+
+def _par_dia_ref(tmp: Path, card: str) -> dict:
+    """The one-process references of phase_parallel_dia: Dia 1.6B from its
+    export with its q projections scaled (_q_scaled), f32 then int4, each
+    its greedy codes and sampler logits and the teacher-forced logits of
+    _dia_forced_run; the same teacher-forced run of the model loaded in the
+    f64 reference mode (int4: the same int4 weights, f64 arithmetic)."""
+    from neuralcodecs_tpu_torch import load_dia
+
+    dia = _q_scaled(load_dia(str(tmp / "dia"), device=DEVICE).eval())
+    f64 = _q_scaled(load_dia(str(tmp / "dia"), device=DEVICE,
+                             compute_dtype=torch.float64).eval())
+    ref = {}
+    for mode in ("f32", "int4"):
+        if mode == "int4":
+            dia.quantize_int4()
+            f64.quantize_int4()
+        ref[mode] = _par_dia_run(dia, PAR_DIA_KW)
+        ref[mode]["forced"] = _dia_forced_run(dia)[1]
+        ref[mode]["forced_f64"] = _dia_forced_run(f64)[1]
+    del dia, f64
+    torch.cuda.empty_cache()
+    path = tmp / "parallel_dia_ref.pt"
+    torch.save(ref, path)
+    return {"dir": str(tmp / "dia"), "ref": str(path)}
+
+
+def _dia_logits_agree(ref: dict, got: dict, tol: float, label: str) -> dict:
+    """Greedy runs step by step: the sampler's logits within ``tol`` of the
+    reference's, and the same token wherever the reference's two best
+    logits lie more than 2 x ``tol`` apart (no move of ``tol`` per logit can
+    flip those). At the first step with another token (a near-tie) the two
+    runs' inputs part, so the comparison stops there; otherwise the codes
+    must be equal."""
+    worst, near, parted = 0.0, 0, None
+    for i, (r, g) in enumerate(zip(ref["logits"], got["logits"])):
+        finite = torch.isfinite(r)
+        if not torch.equal(finite, torch.isfinite(g)):
+            raise PhaseError(f"{label}: step {i}: the masks of the two runs differ")
+        pr, pg = r.argmax(-1), g.argmax(-1)
+        if not torch.equal(pr, pg):
+            top2 = torch.topk(torch.where(finite, r, -math.inf), 2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1])[pr != pg]
+            if bool((margin > 2 * tol).any()):
+                raise PhaseError(f"{label}: step {i}: tokens differ at top-2 margins "
+                                 f"{margin.tolist()} > 2 x {tol:.3e}")
+            near, parted = int((pr != pg).sum()), i
+            break
+        worst = max(worst, float((r - g)[finite].abs().max()))
+    if parted is None:
+        if len(ref["logits"]) != len(got["logits"]):
+            raise PhaseError(f"{label}: {len(got['logits'])} steps, the reference "
+                             f"{len(ref['logits'])}")
+        if not (np.array_equal(ref["codes"], got["codes"])
+                and np.array_equal(ref["lengths"], got["lengths"])):
+            raise PhaseError(f"{label}: codes differ with every step's tokens equal")
+    if worst > tol:
+        raise PhaseError(f"{label}: logits {worst:.3e} from the one-process run (> {tol:.3e})")
+    return {"max_logit_diff": worst, "near_tie_tokens": near, "parted_at_step": parted,
+            "steps": len(got["logits"])}
+
+
+def _par_codebook_latents(enc_dir: str) -> torch.Tensor:
+    """Encodec-24k's encoder latents of the served 4 x 10 s batch (the
+    seeded requests of phase_encodec_serve): [3000, 128]."""
+    from neuralcodecs_tpu_torch import load_encodec
+
+    enc = load_encodec(enc_dir, device=DEVICE).eval()
+    sr = enc.config.sample_rate
+    rng = np.random.default_rng(SEED + 3)
+    batch = np.stack([(0.3 * rng.standard_normal(10 * sr)).astype(np.float32)
+                      for _ in range(4)])
+    x = torch.from_numpy(batch)[:, None, :].to(DEVICE)
+    latents = enc.encoder(x)                                        # [4, 128, 750]
+    return latents.transpose(1, 2).reshape(-1, latents.shape[1]).contiguous()
+
+
+# --------------------------------------------------- the ranks' side
+
+
+def _rank_gloo_check(rank: int) -> dict:
+    """all_reduce and broadcast of cuda:0 tensors under gloo."""
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(rank + 1), device=DEVICE)
+    dist.all_reduce(t)
+    b = torch.full((3,), float(rank), device=DEVICE)
+    dist.broadcast(b, src=1)
+    ok = bool((t == 3.0).all()) and bool((b == 1.0).all())
+    if not ok:
+        raise PhaseError(f"gloo on {t.device}: all_reduce {t.tolist()}, broadcast {b.tolist()}")
+    return {"backend": dist.get_backend(), "device": str(t.device), "torch": torch.__version__}
+
+
+def _rank_train(rank: int, job: dict) -> dict:
+    """dp=2 GAN steps of full-width DAC-44k against the one-process steps,
+    their time; then dp=1 x tp=2 steps on storage-sharded weights, a save
+    and restore of that state and one more step."""
+    from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig
+    from neuralcodecs_tpu_torch.models.dac.discriminator import DACDiscriminator
+    from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.parallel import (
+        make_gan_train_step,
+        make_mesh,
+        restore_train_state,
+        save_train_state,
+    )
+    from neuralcodecs_tpu_torch.parallel import collectives
+    from neuralcodecs_tpu_torch.parallel.sharding import sharded_dim
+
+    tr = job["train"]
+    ref = torch.load(tr["ref"], weights_only=False) if rank == 0 else None
+    audio = torch.from_numpy(tr["audio"]).to(DEVICE)
+    model = DAC(DACConfig(), device=DEVICE, seed=tr["seed"])
+    disc = DACDiscriminator(device=DEVICE, seed=SEED + 24)
+    start = (_snapshot(model), _snapshot(disc))
+    sgd = functools.partial(torch.optim.SGD, lr=TRAIN_SGD_LR)
+    out = {}
+
+    def whole(state, prefix: str) -> dict:
+        group = state.mesh.get_group("tp")
+        got = {}
+        for k, p in state.params.items():
+            dim = sharded_dim(state.placements[k])
+            p = p.detach()
+            got[f"{prefix}.{k}"] = (p.clone() if dim is None
+                                    else collectives.gather_cat(p, dim, group))
+        return got
+
+    def param_err(got: dict, want: dict) -> tuple[float, str, float, int]:
+        """(the worst tensor's ‖Δ_got − Δ_ref‖ / ‖Δ_ref‖, its name, the
+        larger of G's and D's as one vector each, the tensors above
+        TRAIN_GRAD_BAR)."""
+        errs, diff2, ref2 = {}, {"g": 0.0, "d": 0.0}, {"g": 0.0, "d": 0.0}
+        for k, w in want.items():
+            if k not in got:   # a buffer
+                continue
+            w0 = start[0 if k[0] == "g" else 1][k[2:]]
+            d_ref = w.to(DEVICE).double() - w0.double()
+            d_got = got[k].double() - w0.double()
+            norm, dist = float(d_ref.norm()), float((d_got - d_ref).norm())
+            errs[k] = dist / norm if norm else float(d_got.abs().max())
+            diff2[k[0]] += dist ** 2
+            ref2[k[0]] += norm ** 2
+        worst = max(errs, key=errs.get)
+        whole_err = max(math.sqrt(diff2[m] / ref2[m]) for m in diff2)
+        return (errs[worst], worst, whole_err,
+                sum(e > TRAIN_GRAD_BAR for e in errs.values()))
+
+    def traj_err(metrics: list, want: list) -> float:
+        return max(abs(m[k] - w[k]) / abs(w[k]) for m, w in zip(metrics, want) for k in w)
+
+    with torch.enable_grad():
+        # dp = 2: 4 of the 8 crops a rank
+        mesh = make_mesh(dp=2)
+        init_fn, step_fn = make_gan_train_step(model, disc, mesh, sgd, sgd)
+        states, metrics = init_fn(), []
+        kernels.reset_launch_counts()
+        with _deterministic():
+            for i in range(1, PAR_TRAIN_STEPS + 1):
+                states, m = step_fn(states, audio)
+                metrics.append({k: float(v) for k, v in m.items()})
+                if i == 1:
+                    first = {**whole(states[0], "g"), **whole(states[1], "d")}
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        got = {**whole(states[0], "g"), **whole(states[1], "d")}   # every rank gathers
+        if rank == 0:
+            t_err = traj_err(metrics, ref["metrics"])
+            p1_err, p1_worst, p1_all, p1_above = param_err(first, ref["params"][1])
+            p_err, p_worst, p_all, _ = param_err(got, ref["params"][PAR_TRAIN_STEPS])
+            phase("parallel dp=2 GAN steps vs one process",
+                  t_err <= PAR_TRAJ_BAR and p1_all <= TRAIN_GRAD_BAR and p_all <= TRAIN_GRAD_BAR
+                  and p1_err <= PAR_TENSOR_BAR,
+                  f"{PAR_TRAIN_STEPS} SGD steps of full-width DAC-44k + DACDiscriminator() at "
+                  f"8 x 0.5 s, 4 crops a rank: metrics within {t_err:.2e} (<= {PAR_TRAJ_BAR}); "
+                  f"G's and D's change within {p1_all:.2e} after step 1 and {p_all:.2e} after "
+                  f"step {PAR_TRAIN_STEPS} (<= {TRAIN_GRAD_BAR}); step 1's worst tensor "
+                  f"{p1_err:.2e} (<= {PAR_TENSOR_BAR}; {p1_worst}; {p1_above} of {len(first)} "
+                  f"above {TRAIN_GRAD_BAR}); rank 0's launches {counts}")
+            out.update({"dp_traj_rel_err": t_err, "dp_step1_rel_err": p1_all,
+                        "dp_step1_worst_tensor": [p1_worst, p1_err],
+                        "dp_step1_tensors_above_1e-3": p1_above, "dp_param_rel_err": p_all,
+                        "dp_step5_worst_tensor": [p_worst, p_err]})
+        del first, got
+        out["dp_metrics"] = metrics
+        out["dp_counts"] = counts
+
+        def step():
+            states_box[0], _ = step_fn(states_box[0], audio)
+
+        states_box = [states]
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(PAR_TRAIN_TIMED):
+            step()
+        torch.cuda.synchronize()
+        out["dp_step_ms"] = (time.perf_counter() - t0) * 1e3 / PAR_TRAIN_TIMED
+        out["dp_launches_per_step"] = {k: v / PAR_TRAIN_TIMED
+                                       for k, v in kernels.launch_counts().items() if v}
+        out["dp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with _timed_collectives() as spent:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+        out["dp_instrumented_step_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+        out["dp_collective_ms"] = spent["ms"] / 2
+        out["dp_collective_mb"] = spent["bytes"] / 2 / 1e6
+        del states_box, states, step_fn, init_fn
+        torch.cuda.empty_cache()
+
+        # dp = 1 x tp = 2: the weights of >= 256 output channels stored as
+        # halves, gathered whole at each use
+        model.load_state_dict(start[0])
+        disc.load_state_dict(start[1])
+        mesh = make_mesh(dp=1, tp=2)
+        init_fn, step_fn = make_gan_train_step(model, disc, mesh, sgd, sgd)
+        states, metrics = init_fn(), []
+        sharded = sum(sharded_dim(p) is not None for p in states[0].placements.values())
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        step_ms = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _deterministic():
+                states, m = step_fn(states, audio)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                kernels_first = kernels.launch_counts()
+                first = {**whole(states[0], "g"), **whole(states[1], "d")}
+        out["tp_step_ms"] = step_ms[1]
+        out["tp_counts"] = kernels.launch_counts()
+        out["tp_counts_step1"] = kernels_first
+        out["tp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["tp_sharded_tensors"] = sharded
+        saved = {**whole(states[0], "g"), **whole(states[1], "d")}
+        if rank == 0:
+            t_err = traj_err(metrics, ref["metrics"][:2])
+            p1_err, p1_worst, p1_all, p1_above = param_err(first, ref["params"][1])
+            _, _, p_all, _ = param_err(saved, ref["params"][2])
+            phase("parallel tp=2 GAN steps vs one process",
+                  t_err <= PAR_TRAJ_BAR and p1_all <= TRAIN_GRAD_BAR
+                  and p_all <= TRAIN_GRAD_BAR and p1_err <= PAR_TENSOR_BAR and sharded > 0,
+                  f"2 SGD steps, G's {sharded} tp-sharded tensors stored as halves and "
+                  f"gathered at use (kernel 2b's training form on the whole weight): metrics "
+                  f"within {t_err:.2e} (<= {PAR_TRAJ_BAR}); G's and D's change within "
+                  f"{p1_all:.2e} / {p_all:.2e} after steps 1 / 2 (<= {TRAIN_GRAD_BAR}); step "
+                  f"1's worst tensor {p1_err:.2e} ({p1_worst}; {p1_above} above "
+                  f"{TRAIN_GRAD_BAR}); rank 0's launches {out['tp_counts']}")
+            out.update({"tp_traj_rel_err": t_err, "tp_step1_rel_err": p1_all,
+                        "tp_step1_worst_tensor": [p1_worst, p1_err],
+                        "tp_param_rel_err": p_all})
+        del first
+        ckpt = Path(job["tmp"]) / "parallel_tp_ckpt"
+        save_train_state(states[0], ckpt / "g")
+        save_train_state(states[1], ckpt / "d")
+        states = (restore_train_state(ckpt / "g", template=states[0]),
+                  restore_train_state(ckpt / "d", template=states[1]))
+        back = {**whole(states[0], "g"), **whole(states[1], "d")}
+        bit_equal = all(torch.equal(back[k], v) for k, v in saved.items())
+        with _deterministic():
+            states, m = step_fn(states, audio)
+        third = {k: float(v) for k, v in m.items()}
+        if rank == 0:
+            t_err = traj_err([third], ref["metrics"][2:3])
+            phase("parallel tp=2 checkpoint", bit_equal and states[0].step == 3
+                  and t_err <= PAR_TRAJ_BAR,
+                  f"saved whole from the halves, restored onto the tp mesh: {len(saved)} "
+                  f"tensors bit for bit: {bit_equal}; a 3rd step from it at step "
+                  f"{states[0].step}, metrics within {t_err:.2e} of the one-process 3rd step")
+        out["tp_restored_bit_equal"] = bit_equal
+    del model, disc, states, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_encode(rank: int, job: dict) -> dict:
+    """SNAC-24k's encode of one PAR_ENCODE_SECONDS clip, time-sharded over
+    sp=2, against the one-process encode (rank 0)."""
+    from neuralcodecs_tpu_torch import load_snac
+    from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.parallel import make_mesh, sharded_encode
+
+    snac = load_snac(job["encode"]["dir"], device=DEVICE).eval()
+    mesh = make_mesh(dp=1, tp=1, sp=2)
+    rng = np.random.default_rng(SEED + 40)
+    audio = (0.3 * rng.standard_normal((1, PAR_ENCODE_SECONDS * snac.config.sample_rate))
+             ).astype(np.float32)
+    kernels.reset_launch_counts()
+    codes = sharded_encode(snac, mesh, audio)
+    torch.cuda.synchronize()
+    out = {"counts": kernels.launch_counts()}
+    t0 = time.perf_counter()
+    sharded_encode(snac, mesh, audio)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    with _timed_collectives() as spent:
+        sharded_encode(snac, mesh, audio)
+    out["collective_ms"] = spent["ms"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        want = snac.encode(audio)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snac.encode(audio)
+        torch.cuda.synchronize()
+        out["one_process_ms"] = (time.perf_counter() - t0) * 1e3
+        match = [float((a == b).float().mean()) for a, b in zip(codes, want)]
+        shapes_ok = all(a.shape == b.shape for a, b in zip(codes, want))
+        out["match"] = match
+        phase("parallel sp=2 encode vs one process", shapes_ok and min(match) >= 0.99,
+              f"full-width SNAC-24k, one {PAR_ENCODE_SECONDS} s clip over sp=2: codes "
+              f"{[tuple(c.shape) for c in codes]} equal the one-process encode's at "
+              f"{[f'{m:.4%}' for m in match]} (>= 99% a stage); rank 0: {out['ms']:.1f} ms "
+              f"(one process {out['one_process_ms']:.1f} ms), launches {out['counts']}")
+    del snac
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_dia(rank: int, job: dict) -> dict:
+    """Dia 1.6B from its export, tp=2, f32 then int4. Gate: the teacher-
+    forced logits within DIA_F64_FACTOR x the one-process run's error of
+    the f64 mode's (row-parallel sums reorder f32 additions, as another
+    card's kernels would; at 12 + 18 random-weight layers that error is
+    measured, not assumed); the greedy runs' sampler logits within that
+    limit plus the one-process error of each other, and their codes equal
+    up to a near-tie under it."""
+    from neuralcodecs_tpu_torch import load_dia
+    from neuralcodecs_tpu_torch.parallel import collectives, make_mesh, shard_params
+
+    mesh = make_mesh(dp=1, tp=2)
+    ref = torch.load(job["dia"]["ref"], weights_only=False) if rank == 0 else None
+    out = {}
+    for mode in ("f32", "int4"):
+        dia = _q_scaled(load_dia(job["dia"]["dir"], device=DEVICE).eval())
+        if mode == "int4":
+            dia.quantize_int4()
+        shard_params(mesh, dia)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        forced = _dia_forced_run(dia)[1]
+        # the control: each rank's row-parallel partial doubled in place of
+        # the sum (a dropped shard at the right scale) must fail the gate
+        inner, collectives.row_parallel_sum = collectives.row_parallel_sum, (
+            lambda partial, group: 2.0 * partial)
+        try:
+            control = _dia_forced_run(dia)[1]
+        finally:
+            collectives.row_parallel_sum = inner
+        got = _par_dia_run(dia, PAR_DIA_KW)
+        steps = len(got["logits"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dia.generate_codes(DIA_TEXTS, **PAR_DIA_KW)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        with _timed_collectives() as spent:
+            dia.generate_codes(DIA_TEXTS, **PAR_DIA_KW)
+        res = {"step_ms": ms, "collective_ms_per_step": spent["ms"] / steps,
+               "collectives_per_step": spent["calls"] / steps,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kv_heads_per_rank": dia.decoder.layers[0].self_attention.n_kv}
+        if rank == 0:
+            r = ref[mode]
+            err_one = float((r["forced"] - r["forced_f64"]).abs().max())
+            err_tp = float((forced - r["forced_f64"]).abs().max())
+            err_control = float((control - r["forced_f64"]).abs().max())
+            tp_vs_one = float((forced - r["forced"]).abs().max())
+            limit = DIA_F64_FACTOR * err_one
+            res.update({"forced_err_vs_f64": {"one_process": err_one, "tp": err_tp,
+                                              "control": err_control},
+                        "forced_tp_vs_one": tp_vs_one, "limit": limit,
+                        "logit_scale": float(r["forced_f64"].abs().max())})
+            # two runs each within their error of f64 lie within the sum:
+            # the greedy runs are held to the limit plus the one-process error
+            tol = limit + err_one
+            res.update(_dia_logits_agree(r, got, tol, f"dia tp=2 {mode}"))
+            phase(f"parallel tp=2 dia {mode} vs one process",
+                  err_tp <= limit < err_control,
+                  f"Dia 1.6B from its export, q scaled, {res['kv_heads_per_rank']} K/V heads "
+                  f"a rank: 16 teacher-forced steps' logits (max |logit| "
+                  f"{res['logit_scale']:.2f}) {err_tp:.3e} from the f64 mode, the one-process "
+                  f"run {err_one:.3e} (<= {DIA_F64_FACTOR:g} x: {limit:.3e}), the control "
+                  f"(partials doubled, no sum) {err_control:.3e} (must exceed it), tp vs one "
+                  f"process {tp_vs_one:.3e}; "
+                  f"{len(DIA_TEXTS)} requests greedy to {PAR_DIA_KW['max_tokens']} tokens: "
+                  f"sampler logits within {res['max_logit_diff']:.2e} until the runs part at "
+                  f"step {res['parted_at_step']} on {res['near_tie_tokens']} near-tie tokens "
+                  f"(top-2 margin <= 2 x {tol:.2e}) of {res['steps']} steps; "
+                  f"{ms:.1f} ms a step, collectives {res['collective_ms_per_step']:.1f} ms a "
+                  f"step ({res['collectives_per_step']:.0f} all-reduces), peak "
+                  f"{res['peak_gb']:.2f} GB on rank 0")
+        out[mode] = res
+        del dia
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_codebook(rank: int, job: dict) -> dict:
+    """kmeans to 1024 entries on Encodec-24k's latents (kernel 1), then
+    PAR_EMA_STEPS EMA steps over dp=2 with expire_codes; rank 0 holds each
+    search to the plain version on the same inputs and the dp state to the
+    one-process update with the plain search."""
+    from neuralcodecs_tpu_torch.models.encodec import quantize as q
+    from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin_plain
+    from neuralcodecs_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(dp=2)
+    kernels.reset_launch_counts()
+    flat = _par_codebook_latents(job["codebook"]["dir"])
+    searched = {"rows": 0, "flips": 0, "gap": 0.0}
+    inner = q.l2_argmin_codes
+
+    def checked(x, cb):
+        got = inner(x, cb)
+        n, gap = _compare_codes(x, cb, got, codebook_argmin_plain(x, cb))
+        searched["rows"] += x.shape[0]
+        searched["flips"] += n
+        searched["gap"] = max(searched["gap"], gap)
+        return got
+
+    q.l2_argmin_codes = checked
+    try:
+        t0 = time.perf_counter()
+        means, bins = q.kmeans(torch.Generator(device=DEVICE).manual_seed(SEED + 50), flat,
+                               **PAR_KMEANS)
+        torch.cuda.synchronize()
+        kmeans_ms = (time.perf_counter() - t0) * 1e3
+        cb = q.EuclideanCodebook(flat.shape[1], PAR_KMEANS["num_clusters"]).to(DEVICE)
+        start = q.CodebookState(means, means.clone(), bins.clone(), torch.ones(1, device=DEVICE))
+        n = flat.shape[0] // 2
+        mine = flat[rank * n:(rank + 1) * n]
+        state, states = start, []
+        t0 = time.perf_counter()
+        for step in range(PAR_EMA_STEPS):
+            codes = q.l2_argmin_codes(mine, state.embed)
+            state = cb.ema_update(state, mine, codes, dp_group=mesh.get_group("dp"))
+            state = cb.expire_codes(torch.Generator(device=DEVICE).manual_seed(SEED + 60 + step),
+                                    state, flat)
+            states.append(state)
+        torch.cuda.synchronize()
+        ema_ms = (time.perf_counter() - t0) * 1e3 / PAR_EMA_STEPS
+    finally:
+        q.l2_argmin_codes = inner
+    counts = kernels.launch_counts()
+    out = {"counts": counts, "kmeans_ms": kmeans_ms, "ema_step_ms": ema_ms, **searched}
+    if rank == 0:
+        worst = dict.fromkeys(q.CodebookState._fields[:3], 0.0)
+        flips, moved, prev = 0, 0.0, start
+        for step, got in enumerate(states):
+            k_codes, p_codes = inner(flat, prev.embed), codebook_argmin_plain(flat, prev.embed)
+            n, _ = _compare_codes(flat, prev.embed, k_codes, p_codes)
+            ref = cb.ema_update(prev, flat, p_codes)
+            ref = cb.expire_codes(torch.Generator(device=DEVICE).manual_seed(SEED + 60 + step),
+                                  ref, flat)
+            # a near-tie flip moves its row between two codes: those codes'
+            # statistics differ by the row; every other code must agree to
+            # the f32 order of the dp sum
+            flipped = k_codes != p_codes
+            touched = torch.zeros(cb.codebook_size, dtype=torch.bool, device=DEVICE)
+            touched[k_codes[flipped].long()] = True
+            touched[p_codes[flipped].long()] = True
+            for name in worst:
+                a, b = getattr(got, name)[~touched], getattr(ref, name)[~touched]
+                excess = ((a - b).abs() - PAR_EMA_TOL["atol"]).div(b.abs().clamp_min(1e-30))
+                worst[name] = max(worst[name], float(excess.max()))
+            if n:
+                moved = max(moved, float((got.cluster_size - ref.cluster_size)[touched]
+                                         .abs().max()))
+            flips, prev = flips + n, got
+        out.update({"state_rel_err": worst, "ref_flips": flips, "flip_cluster_moved": moved})
+        flip_limit = (1 - cb.decay) * flips + PAR_EMA_TOL["atol"]
+        phase("parallel dp=2 codebook vs one process",
+              all(v <= PAR_EMA_TOL["rtol"] for v in worst.values()) and moved <= flip_limit
+              and counts["codebook_argmin"] > 0 and counts["lstm_scan"] > 0,
+              f"Encodec-24k latents {tuple(flat.shape)} (kernel 3), kmeans to "
+              f"{PAR_KMEANS['num_clusters']} over {PAR_KMEANS['num_iters']} iterations in "
+              f"{kmeans_ms:.1f} ms, then {PAR_EMA_STEPS} EMA steps over dp=2 with "
+              f"expire_codes, {ema_ms:.2f} ms a step; kernel 1 against plain over "
+              f"{searched['rows']} searched rows: {searched['flips']} near-tie flips (max gap "
+              f"{searched['gap']:.2e}); each dp step against the one-process update of the "
+              f"same state with the plain search: {flips} near-tie flips, the codes they "
+              f"touch moved by {moved:.3e} in cluster_size (<= {flip_limit:.3e}), every other "
+              f"code within rtol {PAR_EMA_TOL['rtol']} / atol {PAR_EMA_TOL['atol']} "
+              f"(excess {worst}); launches {counts}")
+    return out
+
+
+_RANK_PARTS = {"parallel_train": _rank_train, "parallel_encode": _rank_encode,
+               "parallel_dia": _rank_dia, "parallel_codebook": _rank_codebook}
+
+
+def _parallel_rank(rank: int, job: dict) -> dict:
+    """What each rank of the parallel phases' spawn runs: the gloo check,
+    then each selected phase in order."""
+    torch.set_grad_enabled(False)
+    torch.set_num_threads(max(1, torch.get_num_threads() // PAR_RANKS))  # the host's cores
+    out = {"gloo": _rank_gloo_check(rank)}
+    for name in job["phases"]:
+        t0 = time.time()
+        out[name] = _RANK_PARTS[name](rank, job)
+        out[name]["seconds"] = time.time() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _parallel_phases(tmp: Path, card: str, selected=PARALLEL_PHASES) -> dict:
+    """The parallel phases of ``selected``: the world-1 NCCL step in this
+    process, then one spawn of PAR_RANKS ranks sharing the card over gloo
+    for the others, after their one-process references. Every rank's
+    failure fails the run with its traceback."""
+    from neuralcodecs_tpu_torch.parallel.launch import run_local
+
+    t0 = time.time()
+    res = {}
+    if "parallel_nccl1" in selected:
+        res["parallel_nccl1"] = phase_parallel_nccl1(tmp, card)
+    job = {"tmp": str(tmp), "phases": [p for p in _RANK_PARTS if p in selected]}
+    if "parallel_train" in selected:
+        job["train"] = _par_train_ref(tmp, card)
+    if "parallel_encode" in selected:
+        job["encode"] = {"dir": str(tmp / "snac_24khz")}
+    if "parallel_dia" in selected:
+        job["dia"] = _par_dia_ref(tmp, card)
+    if "parallel_codebook" in selected:
+        job["codebook"] = {"dir": str(tmp / "encodec_24khz")}
+    if job["phases"]:
+        torch.cuda.empty_cache()
+        t_spawn = time.time()
+        ranks = run_local(_parallel_rank, PAR_RANKS, (job,), timeout=900)
+        spawn_s = time.time() - t_spawn
+        gloo = ranks[0]["gloo"]
+        print(f"    parallel ranks: {PAR_RANKS} on one card over {gloo['backend']} "
+              f"({gloo['device']}, torch {gloo['torch']}), {spawn_s:.1f} s for the spawn; "
+              f"peak GB by rank {[round(r['peak_gb'], 2) for r in ranks]}; on {card}")
+        for name in job["phases"]:
+            res[name] = {"ranks": [r[name] for r in ranks]}
+        res["spawn_s"] = spawn_s
+        res["gloo"] = gloo
+        if "parallel_train" in res:
+            r0 = res["parallel_train"]["ranks"][0]
+            res["parallel_train"]["one_process_ms"] = job["train"]["one_process_ms"]
+            print(f"    parallel train: dp=2 GAN step {r0['dp_step_ms']:.1f} ms a rank "
+                  f"(one process, 8 crops: {job['train']['one_process_ms']:.1f} ms under SGD), "
+                  f"collectives {r0['dp_collective_ms']:.1f} ms a step "
+                  f"({r0['dp_collective_ms'] / r0['dp_instrumented_step_ms']:.1%} of the "
+                  f"synchronised step, {r0['dp_collective_mb']:.0f} MB), peak by rank "
+                  f"{[round(r['dp_peak_gb'], 2) for r in res['parallel_train']['ranks']]} GB, "
+                  f"launches a step a rank {r0['dp_launches_per_step']}; tp=2 step "
+                  f"{r0['tp_step_ms']:.1f} ms, peak {r0['tp_peak_gb']:.2f} GB, kernel 2b "
+                  f"{r0['tp_counts']['fused_residual_unit_dense'] / 2:.0f} launches a step a "
+                  f"rank; on {card}")
+        if "parallel_encode" in res:
+            rs = res["parallel_encode"]["ranks"]
+            print(f"    parallel encode: ms by rank {[round(r['ms'], 1) for r in rs]}, "
+                  f"collectives {rs[0]['collective_ms']:.1f} ms, peak "
+                  f"{[round(r['peak_gb'], 2) for r in rs]} GB, launches by rank "
+                  f"{[r['counts'] for r in rs]}; on {card}")
+        if "parallel_dia" in res:
+            for mode in ("f32", "int4"):
+                rs = [r[mode] for r in res["parallel_dia"]["ranks"]]
+                print(f"    parallel dia {mode}: step ms by rank "
+                      f"{[round(r['step_ms'], 1) for r in rs]}, collectives "
+                      f"{[round(r['collective_ms_per_step'], 1) for r in rs]} ms a step, peak "
+                      f"{[round(r['peak_gb'], 2) for r in rs]} GB; on {card}")
+        if "parallel_codebook" in res:
+            rs = res["parallel_codebook"]["ranks"]
+            print(f"    parallel codebook: launches by rank {[r['counts'] for r in rs]}; "
+                  f"on {card}")
+    res["seconds"] = time.time() - t0
+    print(f"    parallel phases: {res['seconds']:.1f} s")
+    return res
+
+
+def _parallel_counts(res: dict) -> dict:
+    """Rank 0's launches on the parallel phases' main paths (each rank's
+    counts were set to 0 just before each path and read just after)."""
+    counts = dict(_NO_LAUNCHES)
+    for name, key in (("parallel_train", "dp_counts"), ("parallel_train", "tp_counts"),
+                      ("parallel_encode", "counts"), ("parallel_codebook", "counts")):
+        if name in res:
+            for k, v in res[name]["ranks"][0][key].items():
+                counts[k] += v
+    return counts
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3988,10 +4802,12 @@ def _entry(name: str, source: str, replaces: str, launches: dict, res: dict) -> 
             **{k: res[k] for k in ("bound_f32_ms", "floor_ms") if k in res}}
 
 
-PHASES = ("dia_bf16", "codec_precision")
+PRECISION_PHASES = ("dia_bf16", "codec_precision")
+PHASES = ("snac_http", "encodec_http", "dac_http", "dia_http", "dac_train") + PRECISION_PHASES \
+    + PARALLEL_PHASES
 
 
-def _precision_phases(tmp: Path, dac_dir: Path, card: str, selected=PHASES) -> dict:
+def _precision_phases(tmp: Path, dac_dir: Path, card: str, selected=PRECISION_PHASES) -> dict:
     """The precision phases of ``selected``, after the setup that writes
     their exports."""
     t0 = time.time()
@@ -4002,6 +4818,41 @@ def _precision_phases(tmp: Path, dac_dir: Path, card: str, selected=PHASES) -> d
         res["codec_precision"] = phase_codec_precision(tmp, card)
     res["seconds"] = time.time() - t0
     print(f"    precision phases: {res['seconds']:.1f} s")
+    return res
+
+
+def _selected_phases(tmp: Path, card: str, selected: list[str]) -> dict:
+    """The phases of ``selected`` alone, after the setup each needs: the
+    codec exports (phase_loader) for all, the LM cache for encodec_http,
+    the Dia export for dia_http, dia_bf16 and parallel_dia; dac_train runs
+    kernel 2b's inference-form check first, as in the whole run."""
+    res = {}
+    model, enc, dac, dac_dir, _ = phase_loader(tmp, card)
+    if "snac_http" in selected:
+        res["snac_http"] = phase_snac_http(model, card)
+    if "encodec_http" in selected:
+        phase_lm_cache(enc, tmp, card)
+        res["encodec_http"] = phase_encodec_http(enc, card)
+    if "dac_http" in selected:
+        res["dac_http"] = phase_dac_http(dac, card)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    if "dac_train" in selected:
+        res["resunit_dense"] = phase_resunit_dense(dac, gen)
+    del model, enc, dac
+    torch.cuda.empty_cache()
+    if "dac_train" in selected:
+        res["dac_train"] = phase_dac_train(tmp, card, gen)
+    if {"dia_http", "dia_bf16", "parallel_dia"} & set(selected):
+        dia, _ = _dia_from_export(tmp, card)
+        if "dia_http" in selected:
+            dia.load_dac_model(str(dac_dir))
+            res["dia_http"] = phase_dia_http(dia, card)
+        del dia
+        torch.cuda.empty_cache()
+    if set(PRECISION_PHASES) & set(selected):
+        res["precision"] = _precision_phases(tmp, dac_dir, card, selected)
+    if set(PARALLEL_PHASES) & set(selected):
+        res["parallel"] = _parallel_phases(tmp, card, selected)
     return res
 
 
@@ -4026,11 +4877,7 @@ def main() -> int:
             info = phase_device()
             built = phase_build()
             if selected:
-                dac_dir = phase_loader(tmp, info["smi"])[3]
-                if "dia_bf16" in selected:
-                    _dia_from_export(tmp, info["smi"])
-                torch.cuda.empty_cache()
-                res = _precision_phases(tmp, dac_dir, info["smi"], selected)
+                res = _selected_phases(tmp, info["smi"], selected)
                 if args.out:
                     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
                     Path(args.out).write_text(json.dumps(
@@ -4079,6 +4926,11 @@ def main() -> int:
             precision = _precision_phases(tmp, dac_dir, info["smi"])
             dia_bf16, codec_precision = precision["dia_bf16"], precision["codec_precision"]
             dia_bf16["precision_phases_s"] = precision["seconds"]
+            # the parallel phases: the parent's models freed first, the
+            # ranks load their own
+            del model, enc, model48, golden_dac, resampled
+            torch.cuda.empty_cache()
+            parallel = _parallel_phases(tmp, info["smi"])
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4086,7 +4938,9 @@ def main() -> int:
     paths = (serve, snac_http, enc_serve, enc48, stream, lm_coding, enc_http, dsp, loud,
              dac_serve, dac_http, dac_train, dia_serve, dia_serve["http"], dia_bf16,
              codec_precision)
-    launches = {name: sum(p["counts"][name] for p in paths) for name in KERNELS}
+    par_counts = _parallel_counts(parallel)
+    launches = {name: sum(p["counts"][name] for p in paths) + par_counts[name]
+                for name in KERNELS}
     lstm["rows"] += stream["lstm_rows"]
     cb["rows"] += stream["codebook_rows"]
     kernels_line = {"kernels": [
@@ -4110,7 +4964,8 @@ def main() -> int:
              "loader": loader,
              "dia_golden": dia_golden,
              "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve, "dia_bf16": dia_bf16,
-             "codec_precision": codec_precision}, indent=1, default=str))
+             "codec_precision": codec_precision, "parallel": parallel}, indent=1,
+            default=str))
     print(info["smi"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

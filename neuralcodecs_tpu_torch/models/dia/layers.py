@@ -89,7 +89,16 @@ class DenseGeneral(nn.Module):
     module and made again only when the weight's storage or in-place version
     changes: casting Dia's 1.6 G parameters at every decode step would move
     more bytes than the step's products read. The copy is no parameter or
-    buffer, so state dicts and exports hold the f32 weight alone."""
+    buffer, so state dicts and exports hold the f32 weight alone.
+
+    Under tensor parallelism (``parallel.sharding.shard_params``) a layer
+    holds its rank's slice: a row-parallel one (``o_proj``, ``wo``) sums
+    its partial product over ``reduce_group``; a row-sharded int4 kernel
+    whose group scales stay whole reads them at ``int4_rows`` = (its first
+    row, the whole kernel's rows)."""
+
+    reduce_group = None
+    int4_rows: tuple[int, int] | None = None
 
     def __init__(self, in_shapes: tuple[int, ...], out_features: tuple[int, ...],
                  device: torch.device | None = None):
@@ -118,14 +127,20 @@ class DenseGeneral(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if "weight_q4" in self._buffers:
-            return self._int4_matmul(x)
-        if "weight_q8" in self._buffers:
-            w = self.weight_q8.to(x.dtype) * self.weight_scale.to(x.dtype)
+            y = self._int4_matmul(x)
         else:
-            w = self._weight_as(x.dtype)
-        n_in = len(self.in_shapes)
-        return torch.tensordot(x, w, dims=(list(range(x.dim() - n_in, x.dim())),
-                                           list(range(n_in))))
+            if "weight_q8" in self._buffers:
+                w = self.weight_q8.to(x.dtype) * self.weight_scale.to(x.dtype)
+            else:
+                w = self._weight_as(x.dtype)
+            n_in = len(self.in_shapes)
+            y = torch.tensordot(x, w, dims=(list(range(x.dim() - n_in, x.dim())),
+                                            list(range(n_in))))
+        if self.reduce_group is not None:
+            from neuralcodecs_tpu_torch.parallel.collectives import row_parallel_sum
+
+            y = row_parallel_sum(y, self.reduce_group)
+        return y
 
     @torch.no_grad()
     def quantize_int8(self) -> None:
@@ -173,13 +188,20 @@ class DenseGeneral(nn.Module):
         q4, scale = self.weight_q4, self.weight_scale4
         k2, nf = q4.shape
         k = 2 * k2
-        n_groups = scale.shape[0]
-        g = k // n_groups
-        sg = scale.to(x.dtype)[:, None, :]                       # [K/G, 1, N]
         w_even = ((q4 << 4) >> 4).to(x.dtype)
         w_odd = (q4 >> 4).to(x.dtype)
-        w_even = (w_even.reshape(n_groups, g // 2, nf) * sg).reshape(k2, nf)
-        w_odd = (w_odd.reshape(n_groups, g // 2, nf) * sg).reshape(k2, nf)
+        if self.int4_rows is None:
+            n_groups = scale.shape[0]
+            g = k // n_groups
+            sg = scale.to(x.dtype)[:, None, :]                   # [K/G, 1, N]
+            w_even = (w_even.reshape(n_groups, g // 2, nf) * sg).reshape(k2, nf)
+            w_odd = (w_odd.reshape(n_groups, g // 2, nf) * sg).reshape(k2, nf)
+        else:                                                    # this rank's rows of K
+            first, k_full = self.int4_rows
+            rows = (first + torch.arange(k, device=q4.device)) // (k_full // scale.shape[0])
+            s_rows = scale.to(x.dtype)[rows]                     # [K_rank, N]
+            w_even = w_even * s_rows[0::2]
+            w_odd = w_odd * s_rows[1::2]
         batch_shape = x.shape[:x.dim() - len(self.in_shapes)]
         xb = x.reshape(*batch_shape, k)
         y = torch.matmul(xb[..., 0::2], w_even) + torch.matmul(xb[..., 1::2], w_odd)
@@ -199,7 +221,13 @@ class RMSNorm(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    """Fused gate+up projection [.., 2, I] -> silu(gate)·up -> wo."""
+    """Fused gate+up projection [.., 2, I] -> silu(gate)·up -> wo.
+
+    ``intermediate`` = (start, length): under tensor parallelism with
+    wi_fused whole (its int4 form stays replicated), the slice of the
+    intermediate that this rank's rows of wo take."""
+
+    intermediate: tuple[int, int] | None = None
 
     def __init__(self, embed_dim: int, intermediate_dim: int, device: torch.device | None = None):
         super().__init__()
@@ -208,7 +236,10 @@ class MlpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fused = self.wi_fused(x)                                  # [..., 2, I]
-        return self.wo(F.silu(fused[..., 0, :]) * fused[..., 1, :])
+        h = F.silu(fused[..., 0, :]) * fused[..., 1, :]
+        if self.intermediate is not None:
+            h = h.narrow(-1, *self.intermediate)
+        return self.wo(h)
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -341,6 +372,11 @@ class Attention(nn.Module):
         self.o_proj = DenseGeneral((n_q, head_dim), (out_dim,), device)
         self.register_buffer("timescale", torch.from_numpy(
             rope_timescale(head_dim, min_timescale, max_timescale)).to(device), persistent=False)
+
+    @property
+    def n_kv(self) -> int:
+        """K/V heads this module computes (its rank's, under tp)."""
+        return self.k_proj.out_features[0]
 
     def self_attn(self, x: torch.Tensor, positions: torch.Tensor, mask: torch.Tensor | None,
                   cache: KVCacheSlot | None = None) -> torch.Tensor:

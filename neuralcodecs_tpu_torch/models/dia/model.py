@@ -179,6 +179,8 @@ class _LoopState:
     noise: _RowNoise
     token_limit: int
     last_prefill_step: int
+    # under tp: whether the ranks ever sampled different tokens (0-d bool)
+    disagree: torch.Tensor | None = None
 
 
 def _decoder_receptive_field_frames(rates: Sequence[int],
@@ -222,7 +224,16 @@ class Dia(nn.Module):
     or torch.float64: a reference mode that holds the parameters,
     activations and caches in f64 to measure the other modes' rounding. The
     sampler takes f32 logits in all three; int8 weights and KV codes are
-    quantized from f32 values and dequantized to the compute dtype."""
+    quantized from f32 values and dequantized to the compute dtype.
+
+    ``parallel.sharding.shard_params(mesh, dia)`` makes it tensor-parallel
+    over the mesh's tp ranks (``tp_group``): each rank computes its heads
+    and its slice of each MLP, and caches its heads' K/V only. The ranks
+    draw the same noise from the same seed and so sample the same token;
+    the loop checks that they do at every stop test and at its end, and
+    raises if they ever did not."""
+
+    tp_group = None
 
     def __init__(self, config: DiaConfig | None = None, *,
                  device: torch.device | str | None = None, seed: int = 0,
@@ -442,9 +453,10 @@ class Dia(nn.Module):
         cross_mask = padding_mask[:, None, :]
 
         d = cfg.decoder
-        self_caches = [KVCacheSlot.zeros(2 * b, max_tokens, d.kv_heads, d.gqa_head_dim,
-                                         self.compute_dtype, quantized=kv_int8, device=dev)
-                       for _ in self.decoder.layers]
+        self_caches = [KVCacheSlot.zeros(2 * b, max_tokens, layer.self_attention.n_kv,
+                                         d.gqa_head_dim, self.compute_dtype, quantized=kv_int8,
+                                         device=dev)
+                       for layer in self.decoder.layers]
         generated = torch.full((b, max_tokens, channels), -1, dtype=torch.int64, device=dev)
         t_pre = prefill.shape[1]
         generated[:, :t_pre] = prefill
@@ -476,7 +488,9 @@ class Dia(nn.Module):
             delay=torch.tensor(data.delay_pattern, dtype=torch.int64, device=dev),
             noise=_RowNoise(seed, b, dev),
             token_limit=max_tokens if token_limit is None else token_limit,
-            last_prefill_step=int(prefill_steps.max()))
+            last_prefill_step=int(prefill_steps.max()),
+            disagree=None if self.tp_group is None else torch.zeros((), dtype=torch.bool,
+                                                                   device=dev))
 
     def _decode_step(self, st: _LoopState, s: _Sampling) -> None:
         """One step of the loop at position ``st.step``, in place. Reads
@@ -511,6 +525,10 @@ class Dia(nn.Module):
         pred = _sample_next_token(logits.reshape(b * channels, -1),
                                   None if noise is None else noise.reshape(b * channels, -1),
                                   s.temperature, s.top_k, s.top_p, eos).reshape(b, channels)
+        if st.disagree is not None:
+            from neuralcodecs_tpu_torch.parallel.collectives import disagree
+
+            st.disagree |= disagree(pred, self.tp_group)
 
         # EOS detection and the delay countdown
         done = torch.all(st.countdown == 0)
@@ -542,10 +560,26 @@ class Dia(nn.Module):
         steps."""
         n = 0
         while st.step < stop:
-            if n % _SYNC_EVERY == 0 and bool(torch.all(st.countdown == 0)):
+            if n % _SYNC_EVERY == 0 and self._stop_test(st):
                 return
             self._decode_step(st, s)
             n += 1
+        if st.disagree is not None:
+            self._stop_test(st)
+
+    @staticmethod
+    def _stop_test(st: _LoopState) -> bool:
+        """Whether every row's countdown has drained: one device read. Under
+        tp it also reads whether the ranks ever sampled different tokens,
+        which every rank knows alike (it comes out of an all-reduce), so all
+        of them raise at the same step."""
+        if st.disagree is None:
+            return bool(torch.all(st.countdown == 0))
+        done, differ = torch.stack([torch.all(st.countdown == 0), st.disagree]).tolist()
+        if differ:
+            raise RuntimeError(f"tensor-parallel ranks sampled different tokens by step "
+                               f"{st.step}")
+        return bool(done)
 
     def _sampling(self, buffer_len: int, temperature, top_k, top_p, cfg_scale) -> _Sampling:
         cfg = self.config

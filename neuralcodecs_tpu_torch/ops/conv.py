@@ -16,6 +16,8 @@ the input's dtype it goes into the conv call, as before.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -44,3 +46,33 @@ def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
     if bias is None or bias.dtype == x.dtype:
         return F.conv_transpose1d(x, weight, bias, **kw)
     return F.conv_transpose1d(x, weight, None, **kw) + bias[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Initializers of torch's Conv1d defaults (kaiming uniform, a = sqrt(5)), as
+# the JAX package draws them; torch's own nn.Conv1d init draws from the same
+# distributions, which is what the port's models use
+# ---------------------------------------------------------------------------
+
+
+def _uniform(generator: torch.Generator | None, shape: tuple[int, ...], bound: float,
+             dtype: torch.dtype) -> torch.Tensor:
+    device = generator.device if generator is not None else None
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return (2.0 * u - 1.0) * bound
+
+
+def kaiming_uniform_conv_init(generator: torch.Generator | None, k: int, cin_g: int,
+                              cout: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A Conv1d weight [cout, cin_g, k] from U(-b, b), b = gain · sqrt(3 /
+    fan_in), gain = sqrt(2 / (1 + 5)), fan_in = cin_g · k."""
+    fan_in = cin_g * k
+    bound = math.sqrt(2.0 / (1.0 + 5.0)) * math.sqrt(3.0 / fan_in)
+    return _uniform(generator, (cout, cin_g, k), bound, dtype)
+
+
+def conv_bias_init(generator: torch.Generator | None, fan_in: int, cout: int,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A bias [cout] from U(-1/sqrt(fan_in), 1/sqrt(fan_in)); zeros at fan_in 0."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    return _uniform(generator, (cout,), bound, dtype)

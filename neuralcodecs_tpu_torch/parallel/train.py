@@ -1,5 +1,5 @@
-"""Training steps for DAC on one device (counterpart of
-neuralcodecs_tpu.parallel.train).
+"""Training steps for DAC, on one device or a (dp, tp, sp) mesh
+(counterpart of neuralcodecs_tpu.parallel.train).
 
 ``make_train_step`` trains the generator on the reconstruction recipe (L1 +
 multi-scale mel + the weighted commitment and codebook losses);
@@ -14,8 +14,18 @@ factories: ``optimizer(params) -> torch.optim.Optimizer``, e.g.
 ``functools.partial(torch.optim.SGD, lr=0.1)``. The defaults are optax's
 ``adamw`` (eps 1e-8, weight decay 1e-4, not torch's 1e-2). A step updates
 the modules in place and returns the new ``TrainState``. Audio is the JAX
-package's [B, T, 1], padded to a multiple of the hop. There is no ``mesh``
-argument: the step runs on the device the model is on.
+package's [B, T, 1], padded to a multiple of the hop.
+
+``mesh=None`` steps on the device the model is on. With a mesh
+(``parallel.mesh.make_mesh``) every rank runs the same step on the global
+batch: ``init_fn`` places the parameters by ``param_shardings`` (the tp
+slices stored, gathered at use: ``sharding.shard_params``), and the
+optimizer's state follows each parameter's slice; ``step_fn`` takes the
+rank's dp part of the batch (B must divide by dp), and averages the
+gradients, with the loss, over dp before the optimizer steps (one
+all-reduce). JAX takes the mean loss over the global batch; the mean of
+the dp ranks' local means is the same in exact arithmetic for equal
+shards, and differs by f32 summation order.
 
 In grad mode the model's residual units run the dense kernel's training form
 and its backward on the card (``ops/kernels/resunit.DenseResidualUnitFn``),
@@ -38,6 +48,13 @@ from neuralcodecs_tpu_torch.losses.gan import (
     feature_matching_loss,
     generator_loss,
 )
+from neuralcodecs_tpu_torch.parallel import collectives
+from neuralcodecs_tpu_torch.parallel.mesh import axis_rank, axis_size, mesh_device
+from neuralcodecs_tpu_torch.parallel.sharding import (
+    canonical_params,
+    param_shardings,
+    shard_params,
+)
 
 OptimizerFactory = Callable[..., torch.optim.Optimizer]
 
@@ -53,11 +70,15 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-
 class TrainState:
     """``params``: the module's parameters by name (live: the step updates
     them in place); ``opt_state``: the optimizer, which holds its state;
-    ``step``: steps taken."""
+    ``step``: steps taken. On a mesh, ``params`` holds this rank's slices
+    under the unsharded names, ``placements`` each one's placement, and
+    ``mesh`` the mesh."""
 
     params: dict[str, torch.Tensor]
     opt_state: torch.optim.Optimizer
     step: int
+    mesh: object = None
+    placements: dict | None = None
 
 
 def channels_first(audio: torch.Tensor) -> torch.Tensor:
@@ -67,8 +88,37 @@ def channels_first(audio: torch.Tensor) -> torch.Tensor:
     return audio[..., 0].unsqueeze(1).contiguous()
 
 
-def _init_state(module: nn.Module, optimizer: OptimizerFactory) -> TrainState:
-    return TrainState(dict(module.named_parameters()), optimizer(module.parameters()), 0)
+def _init_state(module: nn.Module, optimizer: OptimizerFactory, mesh=None) -> TrainState:
+    """The state over ``module``'s parameters; with a mesh, after sharding
+    them (once: a module is sharded by one state only)."""
+    if mesh is None:
+        return TrainState(dict(module.named_parameters()), optimizer(module.parameters()), 0)
+    if any(torch.nn.utils.parametrize.is_parametrized(m) for m in module.modules()):
+        raise ValueError("the module is sharded already: make one state per module")
+    order = [name for name, _ in module.named_parameters()]
+    placements = param_shardings(mesh, module)
+    shard_params(mesh, module, placements)
+    params = canonical_params(module, order)
+    # the optimizer sees the parameters in the unsharded order, so its
+    # state's indices are those of a one-device state
+    return TrainState(params, optimizer(list(params.values())), 0, mesh,
+                      {name: placements[name] for name in order})
+
+
+def local_batch(audio: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's dp part of the global batch [B, ...], on its device."""
+    dp, rank = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+    b = audio.shape[0]
+    if b % dp:
+        raise ValueError(f"batch {b} does not divide over dp={dp}")
+    n = b // dp
+    return audio[rank * n:(rank + 1) * n].to(mesh_device(mesh))
+
+
+def _dp_mean(params, mesh, values: torch.Tensor) -> torch.Tensor:
+    """Average the gradients of ``params`` and ``values`` over dp, in one
+    all-reduce; returns the averaged values."""
+    return collectives.mean_grads_(params, mesh.get_group("dp"), values)
 
 
 def _reconstruction(model, out: dict, audio: torch.Tensor, sample_rate: int,
@@ -95,14 +145,15 @@ def dac_generator_loss(model, audio: torch.Tensor, sample_rate: int,
     return parts["recon"] + parts["mel"] + parts["vq"]
 
 
-def make_train_step(model, optimizer: OptimizerFactory | None = None,
+def make_train_step(model, mesh=None, optimizer: OptimizerFactory | None = None,
                     sample_rate: int | None = None,
                     loss_fn: Callable[..., torch.Tensor] | None = None,
                     remat: bool = False):
     """(init_fn, step_fn) for the generator.
 
-    init_fn() -> TrainState over the model's parameters;
-    step_fn(state, audio [B, T, 1]) -> (state, loss). ``loss_fn(model,
+    init_fn() -> TrainState over the model's parameters (sharded over
+    ``mesh`` when one is given); step_fn(state, audio [B, T, 1]) -> (state,
+    loss), with a mesh the global batch and the dp-mean loss. ``loss_fn(model,
     audio)`` defaults to ``dac_generator_loss``. ``remat=True`` runs the loss
     under ``torch.utils.checkpoint`` (non-reentrant): its activations are
     recomputed in the backward instead of kept."""
@@ -114,21 +165,28 @@ def make_train_step(model, optimizer: OptimizerFactory | None = None,
         loss = lambda m, a: torch.utils.checkpoint.checkpoint(inner, m, a, use_reentrant=False)
 
     def init_fn() -> TrainState:
-        return _init_state(model, optimizer)
+        return _init_state(model, optimizer, mesh)
 
     def step_fn(state: TrainState, audio: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
+        if mesh is not None:
+            audio = local_batch(audio, mesh)
         with torch.enable_grad():
             loss_val = loss(model, audio)
             loss_val.backward()
+        loss_val = loss_val.detach()
+        if mesh is not None:
+            loss_val = _dp_mean(state.params.values(), mesh, loss_val)
         opt.step()
-        return TrainState(state.params, opt, state.step + 1), loss_val.detach()
+        return (TrainState(state.params, opt, state.step + 1, state.mesh, state.placements),
+                loss_val)
 
     return init_fn, step_fn
 
 
-def make_gan_train_step(model, discriminator, gen_optimizer: OptimizerFactory | None = None,
+def make_gan_train_step(model, discriminator, mesh=None,
+                        gen_optimizer: OptimizerFactory | None = None,
                         disc_optimizer: OptimizerFactory | None = None,
                         sample_rate: int | None = None, adv_weight: float = 1.0,
                         feat_weight: float = 2.0):
@@ -138,7 +196,9 @@ def make_gan_train_step(model, discriminator, gen_optimizer: OptimizerFactory | 
     step_fn((gen_state, disc_state), audio [B, T, 1]) -> ((gen_state,
     disc_state), metrics) with the JAX step's keys ``gen/total``,
     ``gen/mel``, ``gen/adv``, ``gen/feat``, ``gen/recon`` and
-    ``disc/total``.
+    ``disc/total``. With a ``mesh`` both modules are sharded, each update's
+    gradients are dp-averaged before its optimizer steps, and the metrics
+    are the dp means.
 
     One generator forward serves both updates: the parameters it reads do
     not change between them, so its detached output is the discriminator's
@@ -151,11 +211,14 @@ def make_gan_train_step(model, discriminator, gen_optimizer: OptimizerFactory | 
     sample_rate = sample_rate or model.config.sample_rate
 
     def init_fn() -> tuple[TrainState, TrainState]:
-        return _init_state(model, gen_optimizer), _init_state(discriminator, disc_optimizer)
+        return (_init_state(model, gen_optimizer, mesh),
+                _init_state(discriminator, disc_optimizer, mesh))
 
     def step_fn(states, audio: torch.Tensor):
         gen_state, disc_state = states
         g_opt, d_opt = gen_state.opt_state, disc_state.opt_state
+        if mesh is not None:
+            audio = local_batch(audio, mesh)
         x = channels_first(audio)
         real = x[:, 0]
         with torch.enable_grad():
@@ -165,6 +228,8 @@ def make_gan_train_step(model, discriminator, gen_optimizer: OptimizerFactory | 
             d_opt.zero_grad(set_to_none=True)
             d_loss = discriminator_loss(discriminator(fake.detach()), discriminator(real))
             d_loss.backward()
+            if mesh is not None:
+                d_loss = _dp_mean(disc_state.params.values(), mesh, d_loss.detach())
             d_opt.step()
             # the generator's, against the updated discriminator; the real
             # side's features enter detached, its logits not at all
@@ -180,12 +245,19 @@ def make_gan_train_step(model, discriminator, gen_optimizer: OptimizerFactory | 
             grads = torch.autograd.grad(total, g_params)
         for p, g in zip(g_params, grads):
             p.grad = g
+        metrics = {"gen/total": total, "gen/mel": parts["mel"], "gen/adv": adv,
+                   "gen/feat": feat, "gen/recon": parts["recon"]}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            means = _dp_mean(g_params, mesh, torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, means.unbind()))
         g_opt.step()
         step = gen_state.step + 1
-        metrics = {"gen/total": total, "gen/mel": parts["mel"], "gen/adv": adv,
-                   "gen/feat": feat, "gen/recon": parts["recon"], "disc/total": d_loss}
-        return ((TrainState(gen_state.params, g_opt, step),
-                 TrainState(disc_state.params, d_opt, step)),
-                {k: v.detach() for k, v in metrics.items()})
+        metrics["disc/total"] = d_loss.detach()
+        return ((TrainState(gen_state.params, g_opt, step, gen_state.mesh,
+                            gen_state.placements),
+                 TrainState(disc_state.params, d_opt, step, disc_state.mesh,
+                            disc_state.placements)),
+                metrics)
 
     return init_fn, step_fn

@@ -453,8 +453,9 @@ LOADER_MODULES = ("cache", "events", "export", "files", "importer", "interfaces"
 def test_port_imports_without_jax():
     """The facade, every core module of the loader stack and every other
     module of the port (the losses, the discriminator and the training steps
-    by name) import with no JAX and nothing of the JAX package; a tiny GAN
-    train step runs;
+    by name, the parallel layer's mesh, sharding, timeshard and collectives)
+    import with no JAX and nothing of the JAX package; a world-1 mesh forms
+    and a tiny GAN train step runs;
     the CLI parses and runs a command, and an HTTP and a TCP streaming server
     start on a tiny model and answer, a tiny bf16 Dia generates and a
     mixed-mode SNAC round-trips, still with no JAX."""
@@ -472,7 +473,12 @@ def test_port_imports_without_jax():
             "from neuralcodecs_tpu_torch.models.dac.discriminator import DACDiscriminator\n"
             "from neuralcodecs_tpu_torch.parallel import (make_train_step, make_gan_train_step,\n"
             "    save_train_state, restore_train_state, AudioCropDataset)\n"
+            "from neuralcodecs_tpu_torch.parallel import mesh, sharding, timeshard, collectives\n"
             "import torch\n"
+            "assert sharding.sharded_dim(sharding.tp_sharded(1)) == 1\n"
+            "m = mesh.make_mesh(devices='cpu')\n"
+            "assert mesh.mesh_shape(m) == {'dp': 1, 'tp': 1, 'sp': 1}\n"
+            "torch.distributed.destroy_process_group()\n"
             "from neuralcodecs_tpu_torch.models.dac import DAC, DACConfig\n"
             "dac = DAC(DACConfig(sample_rate=16000, encoder_dim=8, encoder_rates=[2, 2],\n"
             "    decoder_dim=32, decoder_rates=[2, 2], n_codebooks=2, codebook_size=16,\n"

@@ -310,7 +310,7 @@ def test_train_step_sgd_matches_jax():
                                             sample_rate=SR)
     jstate, jloss = j_step(j_init(jmodel.params), jnp.asarray(audio))
     before = {k: p.detach().clone() for k, p in port.named_parameters()}
-    init_fn, step_fn = make_train_step(port, functools.partial(torch.optim.SGD, lr=lr))
+    init_fn, step_fn = make_train_step(port, None, functools.partial(torch.optim.SGD, lr=lr))
     state, loss = step_fn(init_fn(), torch.from_numpy(audio))
     assert state.step == 1 and int(jstate.step) == 1
     np.testing.assert_allclose(float(loss), float(jloss), **TOL)
@@ -330,7 +330,7 @@ def test_gan_train_step_sgd_matches_jax():
     g_before = {k: p.detach().clone() for k, p in port.named_parameters()}
     d_before = {k: p.detach().clone() for k, p in disc.named_parameters()}
     sgd = functools.partial(torch.optim.SGD, lr=lr)
-    init_fn, step_fn = make_gan_train_step(port, disc, sgd, sgd)
+    init_fn, step_fn = make_gan_train_step(port, disc, None, sgd, sgd)
     (g, d), metrics = step_fn(init_fn(), torch.from_numpy(audio))
     assert set(metrics) == set(jmetrics) | {"disc/total"} == {
         "gen/total", "gen/mel", "gen/adv", "gen/feat", "gen/recon", "disc/total"}
@@ -371,8 +371,8 @@ def test_remat_gives_the_same_step():
     _, port_b = dac_pair()
     audio = torch.from_numpy(audio_batch())
     sgd = functools.partial(torch.optim.SGD, lr=0.5)
-    init_a, step_a = make_train_step(port_a, sgd, remat=False)
-    init_b, step_b = make_train_step(port_b, sgd, remat=True)
+    init_a, step_a = make_train_step(port_a, None, sgd, remat=False)
+    init_b, step_b = make_train_step(port_b, None, sgd, remat=True)
     _, loss_a = step_a(init_a(), audio)
     _, loss_b = step_b(init_b(), audio)
     assert float(loss_a) == float(loss_b)
