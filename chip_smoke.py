@@ -108,9 +108,20 @@ over those paths, each kernel's time against its plain version at every
 shape checked, its bound on the card and, where one PyTorch call computes
 the same function, that call's time. torch.profiler passes over the
 Encodec-24k and DAC-44k round trips, the DSP chain and the loudness give
-device time by kernel and idle share. Exits non-zero at the first failed
-phase, and at once when no CUDA device is available. The last line is a
-JSON object naming the device.
+device time by kernel and idle share. The compiled step paths: Dia's
+decode step, Encodec-24k's steady streaming pushes and the LM step run as
+CUDA graphs (ops/graphs.py), each held on the same weights against its
+eager form (ops.graphs.graphs_disabled()): Dia's codes for f32 greedy and
+sampled, the int8 ladder, bf16 and int4, a stream's segments against its
+one-shot codes, an interleaved /tts/stream and /tts each against its solo
+codes; the pushes' codes and audio bit for bit at 1, 8 and 75 hops and for
+the ragged client; the LM's pdfs bit for bit, and .ecdc streams written
+either way decoded the other way; a captured kernel-3 launch replayed after
+eager launches of its own. Dia reports ms a step graphed and eager, the
+device ms a step from the trace summary (diagnostics/xplane.py), host
+launches a step, capture seconds and the state pool's GB. Exits non-zero
+at the first failed phase, and at once when no CUDA device is available.
+The last line is a JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -721,6 +732,49 @@ def _slstm(model, which: str):
     return next(m for m in getattr(model, which).modules() if isinstance(m, SLSTM))
 
 
+def _lstm_captured(w_hh: torch.Tensor, gen: torch.Generator) -> list:
+    """Kernel 3 captured into a CUDA graph (ops/graphs.StepGraph), at T = 750
+    and T = 1 (B = 4): three replays, each after two eager launches of its
+    own, must return and equal the eager launch bit for bit (a launch zeroes
+    the handoff counter on its stream, so a replay needs nothing of the
+    host). Each row: the eager and the replayed launch's ms (CUDA events),
+    and the device µs of a launch's two nodes, the counter's memset and the
+    kernel (torch.profiler over 20 eager launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralcodecs_tpu_torch.ops.graphs import StepGraph
+    from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan
+
+    dev, h, rows = torch.device(DEVICE), w_hh.shape[1], []
+    for t in (750, 1):
+        gx = 0.5 * torch.randn(t, 4, 4 * h, generator=gen, device=dev)
+        h0 = 0.1 * torch.randn(4, h, generator=gen, device=dev)
+        c0 = 0.1 * torch.randn(4, h, generator=gen, device=dev)
+        launch = functools.partial(lstm_scan, gx, w_hh, h0, c0)
+        want = launch()
+        graph = StepGraph(launch)
+        equal = []
+        for _ in range(3):
+            launch()
+            launch()
+            got = graph.replay()
+            torch.cuda.synchronize()
+            equal.append(all(torch.equal(g, w) for g, w in zip(got, want)))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                launch()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        rows.append({"T": t, "B": 4, "H": h, "replays_equal": equal,
+                     "launches_a_replay": graph.launches, "ms": time_ms(launch, 20),
+                     "replay_ms": time_ms(graph.replay, 20),
+                     "memset_us": sum(e.self_device_time_total for e in events
+                                      if "emset" in e.key) / 20,
+                     "kernel_us": sum(e.self_device_time_total for e in events
+                                      if "lstm" in e.key) / 20})
+    return rows
+
+
 def phase_lstm(model, gen: torch.Generator) -> dict:
     """Kernel 3 against its plain loop at the slice's shapes: the 24 kHz
     4 x 10 s batch and 1 s stream, the 48 kHz chunk batch and tail; and at
@@ -782,14 +836,22 @@ def phase_lstm(model, gen: torch.Generator) -> dict:
     lib = torch.nn.LSTM(h, h).to(dev)
     seq = torch.randn(t, b, h, generator=gen, device=dev)
     library_ms = time_ms(lambda: lib(seq), 10)
-    phase("lstm kernel vs plain", not bad and chunked and ragged,
+    captured = _lstm_captured(w512, gen)
+    for r in captured:
+        print(f"    lstm captured T={r['T']} B=4: 3 replays after eager launches equal "
+              f"{r['replays_equal']}; eager {r['ms']:.4f} ms, replay {r['replay_ms']:.4f} ms; "
+              f"device: counter memset {r['memset_us']:.2f} us + kernel {r['kernel_us']:.2f} us")
+    replays_ok = all(all(r["replays_equal"]) and r["launches_a_replay"] == {"lstm_scan": 1}
+                     for r in captured)
+    phase("lstm kernel vs plain", not bad and chunked and ragged and replays_ok,
           f"{len(cases)} shapes (ys, h_f, c_f) within rtol 1e-5/atol 1e-6 "
           f"(max|err| {err:.2e}); a case with B > BS: {chunked}, with a ragged last "
           f"block: {ragged}; torch.nn.LSTM (cuDNN, with its input projection) at "
           f"T={t} B={b} H={h}: {library_ms:.3f} ms; the kernel there {rows[0]['ms']:.3f} ms, "
-          f"{rows[0]['step_us']:.2f} us a step, handoff floor {rows[0]['floor_ms']:.3f} ms"
+          f"{rows[0]['step_us']:.2f} us a step, handoff floor {rows[0]['floor_ms']:.3f} ms; "
+          f"a captured launch replayed after eager ones, bit for bit: {replays_ok}"
           + (f"; mismatches {bad}" if bad else ""))
-    return {"rows": rows, "max_abs_err": err, "ms": rows[0]["ms"],
+    return {"rows": rows, "captured": captured, "max_abs_err": err, "ms": rows[0]["ms"],
             "plain_ms": rows[0]["plain_ms"], "library_ms": library_ms,
             "step_us": rows[0]["step_us"], "floor_ms": rows[0]["floor_ms"],
             **bound(flops, nbytes)}
@@ -1227,8 +1289,12 @@ def phase_encodec_stream(model, gen: torch.Generator, card: str) -> dict:
     and 75 from carried state and over 750 chained T = 1 launches, kernel 1
     at 4 and 32 rows. A one-hop session from the very first push is run on
     2 s and its difference from the full forward reported (not held). The
-    kernels' launches are counted per run."""
+    kernels' launches are counted per run. Every push after a session's
+    first replays a CUDA graph (captured in the warm-up runs); each run is
+    repeated with the graphs off, and its codes and audio must be the
+    graphed run's bit for bit."""
     from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.ops.graphs import graphs_disabled
 
     lstm_rows, lstm_err, step = _stream_kernel3(model, gen)
     cb_rows = _stream_codebook(gen)
@@ -1242,8 +1308,10 @@ def phase_encodec_stream(model, gen: torch.Generator, card: str) -> dict:
             "8 hops": (audio, _pushes(8, 8, hops), None),
             "75 hops": (audio, _pushes(75, 75, hops), None),
             "ragged, block_hops=(8, 1)": (audio[:1], _ragged_pushes(hops), (8, 1))}
-    for name, (a, pushes, blocks) in runs.items():  # warm: cuDNN picks its algorithms
-        _session_run(model, a, pushes[:3], n_q, blocks)
+    # warm: cuDNN picks its algorithms and the steady pushes' graphs are
+    # captured, the last (shorter) push's too, outside the counted runs
+    for name, (a, pushes, blocks) in runs.items():
+        _session_run(model, a, pushes[:3] + pushes[-1:], n_q, blocks)
     counts, want, summary, failures = dict(_NO_LAUNCHES), dict(_NO_LAUNCHES), {}, []
     for name, (a, pushes, blocks) in runs.items():
         torch.cuda.synchronize()
@@ -1251,6 +1319,10 @@ def phase_encodec_stream(model, gen: torch.Generator, card: str) -> dict:
         res = _session_run(model, a, pushes, n_q, blocks)
         torch.cuda.synchronize()
         run_counts = kernels.launch_counts()
+        with graphs_disabled():
+            eager = _session_run(model, a, pushes, n_q, blocks)
+        same = (torch.equal(eager["codes"], res["codes"])
+                and torch.equal(eager["audio"], res["audio"]))
         # a sub-step: n_q codebook launches and 2 LSTM layers, encode and decode
         steps = len(_decompose_pushes(pushes, blocks))
         run_want = {**_NO_LAUNCHES, "codebook_argmin": n_q * steps, "lstm_scan": 4 * steps}
@@ -1269,10 +1341,15 @@ def phase_encodec_stream(model, gen: torch.Generator, card: str) -> dict:
                "enc_ms_p50": _pct(res["enc_ms"], 50), "enc_ms_p90": _pct(res["enc_ms"], 90),
                "dec_ms_p50": _pct(res["dec_ms"], 50), "dec_ms_p90": _pct(res["dec_ms"], 90),
                "wall_ms_p50": _pct(res["wall_ms"], 50), "wall_ms_p90": _pct(res["wall_ms"], 90),
-               "frames_differing": frames, "max_rel_gap": gap, "audio_max_abs_err": err}
+               "frames_differing": frames, "max_rel_gap": gap, "audio_max_abs_err": err,
+               "graphed_equals_eager": same,
+               "eager_wall_ms_p50": _pct(eager["wall_ms"], 50),
+               "eager_wall_ms_p90": _pct(eager["wall_ms"], 90),
+               "eager_enc_ms_p50": _pct(eager["enc_ms"], 50),
+               "eager_dec_ms_p50": _pct(eager["dec_ms"], 50)}
         summary[name] = row
-        if gap > 1e-5 or not close or res["codes"].shape != (b, n_q, hops):
-            failures.append((name, frames, gap, err))
+        if gap > 1e-5 or not close or res["codes"].shape != (b, n_q, hops) or not same:
+            failures.append((name, frames, gap, err, same))
         print(f"    stream {name}: {b} session(s), {res['pushes']} pushes; a push (enc + dec, "
               f"CUDA events) p50 {row['enc_ms_p50']:.2f} + {row['dec_ms_p50']:.2f} ms, p90 "
               f"{row['enc_ms_p90']:.2f} + {row['dec_ms_p90']:.2f} ms; wall p50 "
@@ -1282,7 +1359,9 @@ def phase_encodec_stream(model, gen: torch.Generator, card: str) -> dict:
               f"all); "
               f"frames whose codes differ from the full encode "
               f"{frames} of {b * hops} (largest first-stage gap {gap:.1e} rel.); audio vs "
-              f"full decode max|err| {err:.2e}")
+              f"full decode max|err| {err:.2e}; graphed == eager (codes, audio bit for bit): "
+              f"{same}, eager wall p50 {row['eager_wall_ms_p50']:.2f} / p90 "
+              f"{row['eager_wall_ms_p90']:.2f} ms")
     # a one-hop session from the very first push
     short_hops = min(hops, int(SHORT_SECONDS * sr) // hop)
     short = audio[:, : short_hops * hop]
@@ -1309,7 +1388,8 @@ def phase_encodec_stream(model, gen: torch.Generator, card: str) -> dict:
     failed = f"; FAILED {failures}" if failures else ""
     phase("encodec stream", not failures and counts == want,
           f"{len(runs)} runs, codes equal to the full encode apart from near-ties, audio within "
-          f"rtol 1e-4/atol 1e-5 of the full decode{failed}; "
+          f"rtol 1e-4/atol 1e-5 of the full decode, graphed pushes bit for bit the eager "
+          f"ones{failed}; "
           f"launches {counts} == {want}; kernel 3 at T = 1/8/75 and chained vs plain max|err| "
           f"{lstm_err:.2e}; on {card}")
     return {"counts": counts, "runs": summary, "lstm_rows": lstm_rows, "codebook_rows": cb_rows,
@@ -1375,6 +1455,21 @@ def _lm_step_ms(lm, batch: int, k: int, steps: int = 100) -> float:
     return start.elapsed_time(end) / steps
 
 
+def _lm_pdfs(lm, codes: list) -> torch.Tensor:
+    """The LM's pdfs [T, B, card, K, 1], teacher-forced over clips' codes
+    ([K, T] each, one a batch row), as the .ecdc encoder feeds them."""
+    k, t = codes[0].shape
+    inputs = np.zeros((t, len(codes), k, 1), np.int64)
+    for j, c in enumerate(codes):
+        inputs[1:, j, :, 0] = c[:, :-1].T + 1
+    inputs = torch.as_tensor(inputs, device=DEVICE)
+    state, out = lm.init_state(len(codes)), []
+    for step in range(t):
+        probas, state = lm.step(inputs[step], state)
+        out.append(probas)
+    return torch.stack(out)
+
+
 def _cdf_rows_differing(lm, codes: np.ndarray) -> tuple[int, int, float]:
     """(CDF rows that differ between the card's LM and the same LM on the
     CPU, rows, max relative pdf difference), teacher-forced over one clip's
@@ -1408,10 +1503,15 @@ def phase_ecdc_lm(model, model48, card: str) -> dict:
     the 'lp' length prefixes; its 3 frames at lm_batch 4: 'lmb'). The decoded
     codes must equal the encoded ones bit for bit and the audio
     decode(encode(x)) within rtol 1e-5 / atol 1e-6, through the native
-    range coder. A seeded LM is random: it compresses nothing."""
+    range coder. A seeded LM is random: it compresses nothing. The LM step
+    replays a CUDA graph for each batch; with the graphs off (the eager
+    step) the teacher-forced pdfs of the 4 clips must be the same bit for
+    bit, and a clip's stream written eagerly must decode graphed, and the
+    graph-written one eagerly."""
     from neuralcodecs_tpu_torch.models.encodec import ecdc
     from neuralcodecs_tpu_torch.native import build as native_build
     from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.ops.graphs import graphs_disabled
 
     sr = model.config.sample_rate
     rng = np.random.default_rng(SEED + 6)
@@ -1428,6 +1528,8 @@ def phase_ecdc_lm(model, model48, card: str) -> dict:
     direct48 = model48.decode(model48.encode(clip48))[..., :n48]
     k, k48 = codes[0].shape[0], codes48[0].shape[0]
     step_ms = {b: _lm_step_ms(lm, b, k) for b in (1, 4)}
+    with graphs_disabled():
+        eager_step_ms = {b: _lm_step_ms(lm, b, k, 30) for b in (1, 4)}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     blobs, enc_s = _timed_s(lambda: model.compress_batch(clips, use_lm=True, lm=lm, lm_batch=4))
@@ -1441,6 +1543,16 @@ def phase_ecdc_lm(model, model48, card: str) -> dict:
         out48 = model48.decompress(blob48, lm=lm48)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    pdfs = _lm_pdfs(lm, codes)
+    with graphs_disabled():
+        pdf_equal = torch.equal(_lm_pdfs(lm, codes), pdfs)
+        blob_eager = model.compress(clips[0], use_lm=True, lm=lm, lm_batch=1)
+        with _decoded_codes() as eager_of_graphed:
+            model.decompress(blob1, lm=lm)
+    with _decoded_codes() as graphed_of_eager:
+        model.decompress(blob_eager, lm=lm)
+    cross = (np.array_equal(eager_of_graphed[0], codes[0])
+             and np.array_equal(graphed_of_eager[0], codes[0]))
     n_q48 = model48._n_q()
     # encodes: 4 clips + 1 at 24 kHz (8 stages, 2 LSTM layers each), the 48k
     # clip's full chunks and tail (two calls); decodes: 5 + the 48k's two
@@ -1461,15 +1573,21 @@ def phase_ecdc_lm(model, model48, card: str) -> dict:
     raw = [len(model.compress(c, use_lm=False)) for c in clips]
     payload = [len(b) for b in blobs]
     cdf_diff, cdf_rows, pdf_rel = _cdf_rows_differing(lm, codes[0])
-    res = {"counts": counts, "step_ms": step_ms, "encode_s": enc_s, "decode_s": dec_s,
+    res = {"counts": counts, "step_ms": step_ms, "eager_step_ms": eager_step_ms,
+           "pdfs_graphed_equal_eager": pdf_equal, "cross_decode": cross,
+           "blob_eager_equals_graphed": blob_eager == blob1,
+           "encode_s": enc_s, "decode_s": dec_s,
            "encode_1_s": enc1_s, "decode_1_s": dec1_s,
            "encode_xrt": 4 * seconds / enc_s, "decode_xrt": 4 * seconds / dec_s,
            "encode_1_xrt": seconds / enc1_s, "decode_1_xrt": seconds / dec1_s,
            "lm_bytes": payload, "raw_bytes": raw, "blob48_bytes": len(blob48),
            "cdf_rows_differing_card_vs_cpu": cdf_diff, "cdf_rows": cdf_rows,
            "pdf_max_rel_card_vs_cpu": pdf_rel, "audio_max_abs_err": max(errs)}
-    print(f"    lm step (CUDA events, mean of 100): {step_ms[1]:.3f} ms at B=1, {step_ms[4]:.3f} "
-          f"ms at B=4 (k={k} codebooks)")
+    print(f"    lm step (CUDA events, mean of 100), graphed: {step_ms[1]:.3f} ms at B=1, "
+          f"{step_ms[4]:.3f} ms at B=4 (k={k} codebooks); eager {eager_step_ms[1]:.3f} / "
+          f"{eager_step_ms[4]:.3f} ms; teacher-forced pdfs of the 4 clips graphed == eager bit "
+          f"for bit: {pdf_equal}; a clip written eagerly decodes graphed and the other way: "
+          f"{cross} (the two streams' bytes equal: {blob_eager == blob1})")
     print(f"    lm coding: compress_batch 4 x {seconds} s at lm_batch 4 {enc_s:.2f} s "
           f"({res['encode_xrt']:.1f} s of audio per s), decompress_batch {dec_s:.2f} s "
           f"({res['decode_xrt']:.1f}); one clip at lm_batch 1: {enc1_s:.2f} / {dec1_s:.2f} s "
@@ -1479,12 +1597,14 @@ def phase_ecdc_lm(model, model48, card: str) -> dict:
     print(f"    card vs CPU LM, one clip teacher-forced: {cdf_diff} of {cdf_rows} CDF rows differ "
           f"(pdfs max rel. {pdf_rel:.1e}); a stream decodes only where it was written "
           f"(informative, not held)")
-    phase("ecdc lm", same_codes and close and framing and native and counts == want,
+    phase("ecdc lm", same_codes and close and framing and native and counts == want
+          and pdf_equal and cross,
           f"decoded codes == encoded bit for bit (4 at lm_batch 4, 1 at lm_batch 1, 48k's "
           f"{len(codes48)} frames): {same_codes}; audio vs decode(encode(x)) within rtol "
           f"1e-5/atol 1e-6: {close} (max|err| {max(errs):.2e}); headers lmb/lp {framing}; "
           f"native coder {native_build.library_path().name}: {native}; launches {counts} == "
-          f"{want}; on {card}")
+          f"{want}; replayed LM pdfs == eager bit for bit: {pdf_equal}; eager- and "
+          f"graph-written streams decode each other: {cross}; on {card}")
     return res
 
 
@@ -2559,17 +2679,25 @@ def _dia_greedy_both(card, cpu, texts, **kw) -> dict:
     """Greedy generation on the card and on the CPU. Where the step-aligned
     code buffers differ, the first slot that does and the top-2 logit gaps
     (the larger of the card's and the CPU's) of the codes that differ there:
-    a flip at a near-tie changes every later step, so only the first counts."""
+    a flip at a near-tie changes every later step, so only the first counts.
+    The card's run is eager (its sampler's logits are watched); its graphed
+    run's step-aligned buffer must equal it ("graphed_equal")."""
+    from neuralcodecs_tpu_torch.ops.graphs import graphs_disabled
+
     runs = {}
+    st_graph, _, _ = card._generate(texts, temperature=0.0, **kw)
+    graphed = st_graph.generated.clone()
+    card._release_state(st_graph)
     for name, model in (("card", card), ("cpu", cpu)):
-        with _LogitWatch() as watch:
+        with _LogitWatch() as watch, graphs_disabled():
             st, prefill_steps, b = model._generate(texts, temperature=0.0, **kw)
         runs[name] = (st, watch)
     (st_card, w_card), (st_cpu, w_cpu) = runs["card"], runs["cpu"]
     differ = st_card.generated.cpu() != st_cpu.generated
     step0 = int(prefill_steps.min()) - 1
     out = {"equal": not bool(differ.any()), "steps": st_cpu.step - step0, "first_slot": None,
-           "gaps": [], "near_tie": True}
+           "gaps": [], "near_tie": True,
+           "graphed_equal": bool(torch.equal(graphed, st_card.generated))}
     if not out["equal"]:
         slot = int(torch.nonzero(differ.any(dim=2).any(dim=0))[0])
         rows, chans = torch.nonzero(differ[:, slot], as_tuple=True)
@@ -2608,12 +2736,14 @@ def phase_dia_golden() -> dict:
     want = g["ladder_codes"].astype(np.int32)
     got = ladder["codes"][0]
     ladder_ok = got.shape == want.shape and bool((got == want).all())
+    graphed = golden["graphed_equal"] and ladder["graphed_equal"]
     phase("dia golden", golden["near_tie"] and ladder["near_tie"] and (ladder_ok or not ladder[
-        "equal"]),
+        "equal"]) and graphed,
           f"tiny dia_golden weights, greedy, {golden['steps']} steps: card vs CPU "
           f"{_tie_detail(golden)}; serving ladder (int8 KV, block 16, int8 dots), greedy, "
           f"{ladder['steps']} steps: card == ladder_codes {tuple(want.shape)}: {ladder_ok}, "
-          f"card vs CPU {_tie_detail(ladder)}")
+          f"card vs CPU {_tie_detail(ladder)}; the card's graphed steps == its eager steps: "
+          f"{graphed}")
     return {"golden": {k: v for k, v in golden.items() if k != "codes"},
             "ladder": {k: v for k, v in ladder.items() if k != "codes"},
             "ladder_codes_equal": ladder_ok}
@@ -2740,56 +2870,106 @@ def _dia_step_bytes(dia, rows: int, text_len: int, live: float) -> tuple[float, 
     return weight_bytes + kv + cross, flops
 
 
-def _steps_profile(step, n: int = 8) -> tuple[float, float, list]:
-    """torch.profiler (device activity) over n calls of step(): device ms
-    and device launches (kernels, copies, fills) a call, and the top
-    kernels."""
-    from torch.profiler import ProfilerActivity, profile
+# the host's launch calls among a trace's CUDA API events
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                 "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync", "cudaMemcpy", "cudaMemset")
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
+
+def _steps_trace(step, n: int = 8) -> dict:
+    """A Chrome trace (diagnostics.profiler.trace) of n calls of step():
+    the device ms a call and the top ops from the trace summary
+    (diagnostics.xplane.summarize_trace), and the host's launch calls a call
+    (kernel launches, graph launches, async copies and fills) counted in the
+    trace's runtime events."""
+    from neuralcodecs_tpu_torch.diagnostics.profiler import trace
+    from neuralcodecs_tpu_torch.diagnostics.xplane import summarize_trace
+
+    step()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            for _ in range(n):
+                step()
+        summary = summarize_trace(log_dir)
+        events = json.loads(Path(prof.trace_path).read_text())["traceEvents"]
+    launches = sum(1 for e in events if e.get("ph") == "X"
+                   and str(e.get("cat", "")).lower() in ("cuda_runtime", "cuda_driver")
+                   and e.get("name") in _LAUNCH_CALLS)
+    return {"device_ms": sum(ms for _, ms in summary) / n, "host_launches": launches / n,
+            "top": [(name, ms / n) for name, ms in summary[:8]]}
+
+
+def _dia_steps(dia, texts, steps: int) -> dict:
+    """Warm decode steps of a 4-request generation in the served bucket, as
+    the loop takes them (``Dia._advance``: graph replays, or eager steps
+    inside graphs_disabled()): ms a step by CUDA events, the host's time to
+    issue a step, and from a traced pass over 8 more steps the device ms,
+    the host's launches a step and the top ops."""
+    text = dia._pad_text([dia.encode_text(t) for t in texts])
+    delayed, prefill_steps = dia._prefill([None] * len(texts), len(texts))
+    sampling = dia._sampling(DIA_SERVE_KW["pad_tokens_to"], None, None, None, None)
+    st = dia._loop_state(text, delayed, prefill_steps, SEED, np.ones(len(texts), bool),
+                         DIA_SERVE_KW["pad_tokens_to"], DIA_SERVE_KW["max_tokens"], sampling)
+    try:
+        for _ in range(4):
+            dia._advance(st, sampling)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / 1e3 / n,
-            sum(e.count for e in events) / n,
-            [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-             for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps):
+            dia._advance(st, sampling)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / steps
+        traced = _steps_trace(lambda: dia._advance(st, sampling))
+        position = st.step
+    finally:
+        dia._release_state(st)
+    return {"ms": ms, "host_enqueue_ms": host_ms, **traced,
+            "idle": 1.0 - traced["device_ms"] / ms, "position": position}
+
+
+def _graph_pool_gb() -> float:
+    """GB reserved in CUDA-graph memory pools (every pool but the default)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 1e9
 
 
 def _dia_step_time(dia, texts, steps: int = 32) -> dict:
-    """Warm decode steps from a fresh 4-request state in the served bucket:
-    ms a step by CUDA events, the host's enqueue time a step, and from a
-    torch.profiler pass over 8 more steps the device time and the launches
-    a step."""
-    text = dia._pad_text([dia.encode_text(t) for t in texts])
-    delayed, prefill_steps = dia._prefill([None] * len(texts), len(texts))
-    st = dia._start_state(text, delayed, prefill_steps, SEED, np.ones(len(texts), bool),
-                          max_tokens=DIA_SERVE_KW["pad_tokens_to"],
-                          token_limit=DIA_SERVE_KW["max_tokens"], kv_int8=dia.kv_cache_int8)
-    sampling = dia._sampling(DIA_SERVE_KW["pad_tokens_to"], None, None, None, None)
-    for _ in range(4):
-        dia._decode_step(st, sampling)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(steps):
-        dia._decode_step(st, sampling)
-    end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3 / steps
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / steps
-    device_ms, launches, top = _steps_profile(lambda: dia._decode_step(st, sampling))
-    return {"ms": ms, "host_enqueue_ms": host_ms, "device_ms": device_ms,
-            "idle": 1.0 - device_ms / ms, "launches": launches, "position": st.step, "top": top}
+    """The decode step graphed (the path) and eager (graphs off) on the same
+    weights (_dia_steps), with the model's capture seconds, its state pool's
+    GB and the GB reserved in graph pools."""
+    from neuralcodecs_tpu_torch.ops.graphs import graphs_disabled
+
+    out = _dia_steps(dia, texts, steps)
+    with graphs_disabled():
+        out["eager"] = _dia_steps(dia, texts, 16)
+    out["pool"] = {**dia.graph_stats(), "graph_pool_gb": _graph_pool_gb()}
+    out["pool"]["peak_gb"] = out["pool"]["state_gb"] + out["pool"]["graph_pool_gb"]
+    out["launches"] = out["host_launches"]
+    return out
+
+
+def _dia_graphed_vs_eager(dia, kw: dict) -> dict:
+    """Codes of DIA_TEXTS at ``kw`` graphed (the path) and eager (graphs
+    off, the sampler's logits watched for NaN) on the same weights."""
+    from neuralcodecs_tpu_torch.ops.graphs import graphs_disabled
+
+    graphed = dia.generate_codes(DIA_TEXTS, **kw)
+    with graphs_disabled(), _LogitWatch() as watch:
+        eager = dia.generate_codes(DIA_TEXTS, **kw)
+    return {"equal": all(np.array_equal(g, e) for g, e in zip(graphed, eager)),
+            "lengths": graphed[1].tolist(), "nan_logits": bool(watch.nan)}
 
 
 def _dia_served(dia, texts, **kw) -> dict:
     """One generate() call, as the server makes it: its audio and codes,
-    wall time, peak memory, the decode steps run (sampler calls), the
-    device->host syncs (torch.cuda.set_sync_debug_mode) and whether any
-    logit was NaN."""
+    wall time, peak memory, the decode steps run (``Dia._advance`` calls:
+    a replay runs no Python sampler) and the device->host syncs
+    (torch.cuda.set_sync_debug_mode)."""
     import warnings
 
     codes = []
@@ -2799,23 +2979,47 @@ def _dia_served(dia, texts, **kw) -> dict:
         codes.append(generate_codes(*args, **kwargs))
         return codes[-1]
     dia.generate_codes = recorded
+    advance, steps = dia._advance, [0]
+
+    def counted(*args):  # the loop's steps
+        steps[0] += 1
+        return advance(*args)
+    dia._advance = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.set_sync_debug_mode("warn")
     try:
-        with warnings.catch_warnings(record=True) as caught, _LogitWatch() as watch:
+        with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
             audios = dia.generate(texts, **kw)
             wall_s = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        del dia.generate_codes
-    steps = len(watch.gaps)
+        del dia.generate_codes, dia._advance
+    steps = steps[0]
     return {"audios": audios, "codes": codes[0], "steps": steps, "wall_s": wall_s,
             "syncs": sum("synchroniz" in str(w.message) for w in caught),
             "tokens_per_s": steps * len(texts) / wall_s, "realtime": steps / 86.0 / wall_s,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "nan_logits": bool(watch.nan)}
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _print_dia_step(label: str, run: dict, step: dict, bnd: dict, card: str) -> None:
+    """A served run and its decode step, graphed and eager."""
+    e, pool = step["eager"], step["pool"]
+    print(f"    dia {label}: {run['steps']} steps of 4 requests in {run['wall_s']:.2f} s = "
+          f"{run['tokens_per_s']:.1f} tokens/s ({run['realtime']:.2f}x realtime a request); "
+          f"decode step graphed {step['ms']:.2f} ms (CUDA events; host "
+          f"{step['host_enqueue_ms']:.3f} ms, {step['host_launches']:.1f} host launches; "
+          f"device {step['device_ms']:.2f} ms from the trace summary, idle {step['idle']:.1%}), "
+          f"eager {e['ms']:.2f} ms (host {e['host_enqueue_ms']:.2f} ms, "
+          f"{e['host_launches']:.0f} host launches, device {e['device_ms']:.2f} ms) at position "
+          f"{step['position']}, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}); graphs "
+          f"{pool['graphs']} captured in {pool['capture_s']:.2f} s, state pool "
+          f"{pool['slots']} slots {pool['state_gb']:.3f} GB + graph pools "
+          f"{pool['graph_pool_gb']:.3f} GB; {run['syncs']} syncs; peak {run['peak_gb']:.2f} GB "
+          f"on {card}")
+    print("    top (graphed): " + ", ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in step["top"]))
 
 
 def _check_audio(audios, label: str) -> None:
@@ -2891,7 +3095,11 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
     requests at max_tokens 128; the clone runs to max_tokens 384 (the Dia
     phases' time budget). Kernels 1
     and 2b run in the DAC calls. Every code is checked
-    in [0, 1023] with lengths at most max_tokens."""
+    in [0, 1023] with lengths at most max_tokens. Every decode step replays a
+    CUDA graph; on the same weights at max_tokens 128 the graphed codes must
+    equal the eager ones (graphs off; no NaN logit there) greedy, at the
+    serving temperature and on the int8 ladder, and the step is timed both
+    ways (_dia_step_time)."""
     from neuralcodecs_tpu_torch.models.dac import DAC
     from neuralcodecs_tpu_torch.models.dia import model as dia_model
     from neuralcodecs_tpu_torch.ops import kernels
@@ -2919,7 +3127,9 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
 
     kernels.reset_launch_counts()
     with _CallCount(dac, ("from_codes", "encode")) as dac_calls:
-        dia.generate_codes(DIA_TEXTS, **short_kw)                       # warm-up
+        # warm-up: the graphs of the 4-request and the 1-request shapes
+        dia.generate_codes(DIA_TEXTS, **short_kw)
+        dia.generate_codes(DIA_TEXTS[:1], **short_kw)
         served = _dia_served(dia, DIA_TEXTS, **DIA_SERVE_KW)
         check(served["audios"], "serve f32", max_tokens)
         prompt = dia.load_audio_prompt(wav)
@@ -2947,6 +3157,9 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
         streamed, first_codes_s = np.concatenate(blocks), first_codes[0]
         _check_audio([np.concatenate(chunks)], "generate_stream")
         f32_step = _dia_step_time(dia, DIA_TEXTS)
+        compare_kw = dict(DIA_SERVE_KW, max_tokens=128)
+        versus = {"f32 greedy": _dia_graphed_vs_eager(dia, dict(compare_kw, temperature=0.0)),
+                  "f32 sampled": _dia_graphed_vs_eager(dia, compare_kw)}
         short = lambda: dia.generate_codes(DIA_TEXTS, **short_kw)  # noqa: E731
         f32_prof_wall = _timed_s(short)[1] * 1e3
         f32_prof = _device_profile(short, f32_prof_wall, None, reps=1)
@@ -2954,9 +3167,11 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
         # the serving ladder, in place
         dia.quantize_int8().enable_int8_kv_cache()
         dia.kv_dot_int8 = True
+        dia.generate_codes(DIA_TEXTS, **short_kw)     # warm-up: the ladder's graphs
         ladder = _dia_served(dia, DIA_TEXTS, **ladder_kw)
         check(ladder["audios"], "serve int8 ladder", ladder_kw["max_tokens"])
         ladder_step = _dia_step_time(dia, DIA_TEXTS)
+        versus["int8 ladder"] = _dia_graphed_vs_eager(dia, compare_kw)
         ladder_bytes, ladder_flops = _dia_step_bytes(dia, 8, 128, ladder_step["position"])
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -3008,23 +3223,20 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
            "vocode_plain_ms_4x10s": vocode_plain_ms,
            "vocode_snr_db_4x10s": vocode_snr, "path_vocodes": path_vocodes,
            "prompt_codes_equal": prompt_equal,
-           "prompt_frames": int(prompt.shape[0])}
+           "prompt_frames": int(prompt.shape[0]), "graphed_vs_eager": versus}
     for key, run in (("serve", served), ("clone", clone), ("ladder", ladder)):
         res[key] = {k: v for k, v in run.items() if k not in ("audios", "codes")}
     for label, run, step, bnd in (("f32", served, f32_step, res["bound_f32"]),
                                   ("int8 ladder", ladder, ladder_step, res["bound_int8"])):
-        print(f"    dia {label}: {run['steps']} steps of 4 requests in {run['wall_s']:.2f} s = "
-              f"{run['tokens_per_s']:.1f} tokens/s ({run['realtime']:.2f}x realtime a request); "
-              f"decode step {step['ms']:.2f} ms (CUDA events; host enqueue "
-              f"{step['host_enqueue_ms']:.2f} ms, device {step['device_ms']:.2f} ms, idle "
-              f"{step['idle']:.1%}, {step['launches']:.0f} launches) at position "
-              f"{step['position']}, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}); "
-              f"{run['syncs']} syncs; peak {run['peak_gb']:.2f} GB on {card}")
-        print("    top: " + ", ".join(f"{k[:40]} {ms:.3f} ms x{n:.0f}" for k, ms, n in step["top"]))
+        _print_dia_step(label, run, step, bnd, card)
+    for label, v in versus.items():
+        print(f"    dia graphed vs eager, {label}, 4 requests to 128 tokens: codes equal "
+              f"{v['equal']} (lengths {v['lengths']}), NaN logits in the eager run "
+              f"{v['nan_logits']}")
     _print_profile("dia f32 32-token generation", f32_prof, f32_prof_wall)
+    versus_ok = all(v["equal"] and not v["nan_logits"] for v in versus.values())
     ok = (counts == want and stream_equal and prompt_equal and path_snr > 55.0
-          and vocode_snr > 55.0
-          and n_params > 1.6e9 and not any(r["nan_logits"] for r in runs) and sync_ok)
+          and vocode_snr > 55.0 and n_params > 1.6e9 and sync_ok and versus_ok)
     phase("dia serve", ok,
           f"{n_params} parameters loaded from {loaded['bytes'] / 1e9:.2f} GB; launches {counts} == {want} ({dac_calls.calls}); 4 requests "
           f"f32: {served['wall_s']:.2f} s, {served['tokens_per_s']:.1f} tokens/s, syncs "
@@ -3038,7 +3250,9 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
           f"{path_snr:.1f} dB (> 55), max|err| {max(v['max_abs_err'] for v in path_vocodes):.2e}; "
           f"the prompt's encode again with plain kernels 1 and 2b: codes equal {prompt_equal}; "
           f"vocode of 4 x 861 frames {vocode_ms:.1f} ms (plain {vocode_plain_ms:.1f} ms, SNR "
-          f"{vocode_snr:.1f} dB > 55); no NaN logits")
+          f"{vocode_snr:.1f} dB > 55); graphed codes == eager codes at 128 tokens (f32 greedy, "
+          f"f32 sampled, int8 ladder): {[v['equal'] for v in versus.values()]}, no NaN logit "
+          f"in the eager runs")
     return res
 
 
@@ -3128,8 +3342,9 @@ def _dia_bf16_card_vs_cpu() -> dict:
 def _dia_step_series(dia, rounds: int = 4, steps: int = 16) -> dict:
     """One model's decode step in bf16 and in f32, in alternating order
     (bf16, f32, f32, bf16, ...), each mode carrying its own 4-request state
-    in the served bucket: ms a step by CUDA events over ``steps`` steps, one
-    sample a mode a round, sorted."""
+    in the served bucket (a pooled state with its graphs: the steps are
+    replays): ms a step by CUDA events over ``steps`` steps, one sample a
+    mode a round, sorted."""
     modes = {"bf16": BF16, "f32": torch.float32}
     text = dia._pad_text([dia.encode_text(t) for t in DIA_TEXTS])
     delayed, prefill_steps = dia._prefill([None] * len(DIA_TEXTS), len(DIA_TEXTS))
@@ -3137,12 +3352,12 @@ def _dia_step_series(dia, rounds: int = 4, steps: int = 16) -> dict:
     states = {}
     for name, dtype in modes.items():
         dia.compute_dtype = dtype
-        states[name] = dia._start_state(text, delayed, prefill_steps, SEED,
-                                        np.ones(len(DIA_TEXTS), bool),
-                                        max_tokens=DIA_SERVE_KW["pad_tokens_to"],
-                                        token_limit=DIA_SERVE_KW["max_tokens"])
+        states[name] = dia._loop_state(text, delayed, prefill_steps, SEED,
+                                       np.ones(len(DIA_TEXTS), bool),
+                                       DIA_SERVE_KW["pad_tokens_to"], DIA_SERVE_KW["max_tokens"],
+                                       sampling)
         for _ in range(4):
-            dia._decode_step(states[name], sampling)
+            dia._advance(states[name], sampling)
     samples = {name: [] for name in modes}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for r in range(rounds):
@@ -3151,22 +3366,29 @@ def _dia_step_series(dia, rounds: int = 4, steps: int = 16) -> dict:
             torch.cuda.synchronize()
             start.record()
             for _ in range(steps):
-                dia._decode_step(states[name], sampling)
+                dia._advance(states[name], sampling)
             end.record()
             torch.cuda.synchronize()
             samples[name].append(start.elapsed_time(end) / steps)
+    for st in states.values():
+        dia._release_state(st)
     dia.compute_dtype = BF16
     return {name: sorted(v) for name, v in samples.items()}
 
 
-def _dia_run(dia, kw: dict, peak: float) -> dict:
-    """A served generate of DIA_TEXTS, then the decode step's time and its
-    bound (the step's bytes and operations at ``peak``)."""
+def _dia_run(dia, kw: dict, peak: float, versus: bool = False) -> dict:
+    """A served generate of DIA_TEXTS, then the decode step's time graphed
+    and eager and its bound (the step's bytes and operations at ``peak``);
+    with ``versus``, graphed against eager codes at 128 tokens."""
+    dia.generate_codes(DIA_TEXTS, **dict(DIA_SERVE_KW, max_tokens=32))  # warm-up: graphs
     run = _dia_served(dia, DIA_TEXTS, **kw)
     _check_audio(run["audios"], f"{dia.compute_dtype} generate")
     step = _dia_step_time(dia, DIA_TEXTS, steps=16)
     nbytes, flops = _dia_step_bytes(dia, 2 * len(DIA_TEXTS), 128, step["position"])
-    return {"run": run, "step": step, "bytes": nbytes, "bound": bound(flops, nbytes, peak)}
+    out = {"run": run, "step": step, "bytes": nbytes, "bound": bound(flops, nbytes, peak)}
+    if versus:
+        out["graphed_vs_eager"] = _dia_graphed_vs_eager(dia, dict(DIA_SERVE_KW, max_tokens=128))
+    return out
 
 
 def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
@@ -3203,9 +3425,9 @@ def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
 
     kernels.reset_launch_counts()
     with _CallCount(dac, ("from_codes", "encode")) as dac_calls:
-        dia.generate_codes(DIA_TEXTS, **dict(DIA_SERVE_KW, max_tokens=32))   # warm-up
-        res["bf16"] = _dia_run(dia, DIA_BF16_KW, BF16_FLOPS)
+        res["bf16"] = _dia_run(dia, DIA_BF16_KW, BF16_FLOPS, versus=True)
         prompt = dia.load_audio_prompt(wav)
+        dia.generate_codes(DIA_TEXTS[:1], **dict(DIA_SERVE_KW, max_tokens=32))  # warm-up
         clone = _dia_served(dia, DIA_TEXTS[:1], audio_prompts=[prompt], **DIA_BF16_KW)
         _check_audio(clone["audios"], "voice clone bf16")
         dia.compute_dtype = torch.float32   # the same parameters, in the f32 mode
@@ -3222,7 +3444,7 @@ def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
         dia.set_dac_model(dac)
         dia.quantize_int4().enable_int8_kv_cache()
         dia.kv_dot_int8 = True
-        res["int4"] = _dia_run(dia, DIA_BF16_LADDER_KW, BF16_FLOPS)
+        res["int4"] = _dia_run(dia, DIA_BF16_LADDER_KW, BF16_FLOPS, versus=True)
         del dia
         torch.cuda.synchronize()
     served, f32 = res["bf16"]["run"], res["f32"]["run"]
@@ -3248,25 +3470,22 @@ def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
         for name, v in series.items())
         + f"; bf16 / f32 medians {median['bf16'] / median['f32']:.3f} on {card}")
     for label in ("bf16", "f32", "int8", "int4"):
-        run, st = res[label]["run"], res[label]["step"]
-        bnd = res[label]["bound"]
-        print(f"    dia {label}: {run['steps']} steps of 4 requests in {run['wall_s']:.2f} s = "
-              f"{run['tokens_per_s']:.1f} tokens/s ({run['realtime']:.2f}x realtime a request); "
-              f"decode step {st['ms']:.2f} ms (CUDA events; host enqueue "
-              f"{st['host_enqueue_ms']:.2f} ms, device {st['device_ms']:.2f} ms, idle "
-              f"{st['idle']:.1%}, {st['launches']:.0f} launches) at position {st['position']}, "
-              f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}, "
-              f"{res[label]['bytes'] / 1e9:.2f} GB a step); peak {run['peak_gb']:.2f} GB "
-              f"on {card}")
-        print("    top: " + ", ".join(f"{k[:40]} {ms:.3f} ms x{n:.0f}" for k, ms, n in st["top"]))
+        _print_dia_step(label, res[label]["run"], res[label]["step"], res[label]["bound"], card)
+        print(f"    dia {label}: {res[label]['bytes'] / 1e9:.2f} GB a step")
+    versus = {k: res[k]["graphed_vs_eager"] for k in ("bf16", "int4")}
+    for label, v in versus.items():
+        print(f"    dia graphed vs eager, {label}, 4 requests to 128 tokens: codes equal "
+              f"{v['equal']} (lengths {v['lengths']}), NaN logits in the eager run "
+              f"{v['nan_logits']}")
     res["counts"], res["dac_calls"], res["card_vs_cpu"] = counts, dict(dac_calls.calls), logits
     for label in ("bf16", "f32", "int8", "int4"):
         res[label]["run"] = {k: v for k, v in res[label]["run"].items()
                              if k not in ("audios", "codes")}
     res["clone"] = {k: v for k, v in clone.items() if k not in ("audios", "codes")}
     res["seconds"] = time.perf_counter() - t_phase
+    versus_ok = all(v["equal"] and not v["nan_logits"] for v in versus.values())
     ok = (counts == want and counts["codebook_argmin"] > 0 and logits["ok"] and sync_ok
-          and not any(r["nan_logits"] for r in runs.values()))
+          and versus_ok)
     phase("dia bf16", ok,
           f"load_dia(compute_dtype=bf16) in {load_s:.2f} s; launches {counts} == {want} "
           f"({dac_calls.calls}); 4 requests to {DIA_BF16_KW['max_tokens']} tokens: bf16 "
@@ -3283,7 +3502,9 @@ def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
           + f" (max |logit| {logits['logit_scale']:.2f}); card within: {logits['within']}, "
           f"control outside: {logits['control_caught']}; card vs CPU logits "
           f"{logits['card_vs_cpu']:.3e}, finite {logits['finite']} ({logits['seconds']:.1f} s); "
-          f"no NaN logits; {res['seconds']:.1f} s on {card}")
+          f"graphed codes == eager codes at 128 tokens (bf16, int4): "
+          f"{[v['equal'] for v in versus.values()]}, no NaN logit in the eager runs; "
+          f"{res['seconds']:.1f} s on {card}")
     return res
 
 
@@ -3917,7 +4138,12 @@ def phase_dia_http(dia, card: str) -> dict:
     texts in the order the batcher stacked them (a row's noise follows its
     slot); /tts/stream of one text (segments of 32) equals the direct
     generate_stream's PCM, and its time to the first audio is recorded.
-    Kernel 2b launches from the batcher's and the handler's threads."""
+    Then a /tts/stream (128 tokens in segments of 8) with a /tts sent once
+    its first audio is in: the stream takes the device lock a segment at a
+    time and each generation borrows its own pooled decode state, so each
+    reply must equal its request's solo generation; whether the /tts reply
+    came before the stream's end is recorded. Kernel 2b launches from the
+    batcher's and the handler's threads."""
     from neuralcodecs_tpu_torch.cli.serve import CodecServer, _array_to_wav, _streaming_wav_header
     from neuralcodecs_tpu_torch.ops import kernels
 
@@ -3931,6 +4157,7 @@ def phase_dia_http(dia, card: str) -> dict:
     lat: dict = {}
     clients = [_HttpClient(srv.port, lat) for _ in range(4)]
     stream_kw = dict(max_tokens=DIA_HTTP_TOKENS, segment_tokens=32)
+    inter_kw = dict(max_tokens=128, segment_tokens=8)
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -3950,6 +4177,24 @@ def phase_dia_http(dia, card: str) -> dict:
             stream_s = time.perf_counter() - t_req
             lat.setdefault("/tts/stream", []).append(stream_s)
             stream_status = resp.status
+            # a /tts while a /tts/stream runs
+            started = threading.Event()
+
+            def read_stream():
+                c = clients[2].conn
+                c.request("POST", "/tts/stream", body=json.dumps(
+                    {"text": DIA_TEXTS[2], **inter_kw}).encode())
+                r = c.getresponse()
+                head = r.read(44 + 2)
+                started.set()
+                return r.status, head + r.read(), time.perf_counter()
+
+            def post_tts():
+                started.wait(600)
+                reply = clients[3].post("/tts", json.dumps(
+                    {"text": DIA_TEXTS[3], "max_tokens": DIA_HTTP_TOKENS}).encode())
+                return reply, time.perf_counter()
+            inter_stream, (inter_tts, t_tts) = _concurrently(read_stream, post_tts)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         metrics = clients[1].get_json("/metrics")
@@ -3959,29 +4204,48 @@ def phase_dia_http(dia, card: str) -> dict:
         srv.shutdown()
     want = {**_NO_LAUNCHES, "fused_residual_unit_dense":
             len(_residual_units(dac.decoder)) * vocodes.calls["from_codes"]}
-    (args, kw, _), = gen_calls.records["generate"]
+    (args, kw, _), (inter_args, inter_gen_kw, _) = gen_calls.records["generate"]
     stacked = list(args[0])
     direct = dict(zip(stacked, dia.generate(stacked, **kw)))
     equal = sum(s == 200 and wav == _array_to_wav(direct[t], sr)
                 for t, (s, wav) in zip(DIA_TEXTS, replies))
-    chunks = [c for _, c in dia.generate_stream(DIA_TEXTS[0], seed=0,
-                                                pad_tokens_to=DIA_HTTP_BUCKET, **stream_kw)]
-    want_pcm = b"".join((np.clip(c, -1.0, 1.0) * 32767.0).astype("<i2").tobytes() for c in chunks)
-    stream_equal = (stream_status == 200 and stream_blob[:44] == _streaming_wav_header(sr)
-                    and stream_blob[44:] == want_pcm and len(want_pcm) > 0)
+
+    def solo_pcm(text, skw):
+        chunks = [c for _, c in dia.generate_stream(text, seed=0, pad_tokens_to=DIA_HTTP_BUCKET,
+                                                    **skw)]
+        return b"".join((np.clip(c, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+                        for c in chunks)
+
+    def stream_ok(status, blob, pcm):
+        return (status == 200 and blob[:44] == _streaming_wav_header(sr) and blob[44:] == pcm
+                and len(pcm) > 0)
+    stream_equal = stream_ok(stream_status, stream_blob, solo_pcm(DIA_TEXTS[0], stream_kw))
+    inter_solo = dia.generate(list(inter_args[0]), **inter_gen_kw)[0]
+    inter_equal = {
+        "stream": stream_ok(inter_stream[0], inter_stream[1], solo_pcm(DIA_TEXTS[2], inter_kw)),
+        "tts": list(inter_args[0]) == [DIA_TEXTS[3]] and inter_tts[0] == 200
+        and inter_tts[1] == _array_to_wav(inter_solo, sr)}
+    interleaved = t_tts < inter_stream[2]
     sizes = list(srv.batcher.observed_batches)
     res = {"counts": counts, "warmup_s": warm_s, "latency": _latencies(lat, metrics),
            "batcher": metrics.get("batcher"), "batches": sizes, "stacked": stacked,
            "generate_kwargs": kw, "replies_equal": equal, "stream_equal": stream_equal,
            "stream_first_audio_s": first_audio_s, "stream_s": stream_s,
-           "vocodes": vocodes.calls["from_codes"]}
+           "vocodes": vocodes.calls["from_codes"], "interleaved_equal": inter_equal,
+           "tts_before_stream_end": interleaved, "pool": dia.graph_stats()}
     _print_serving("dia-1.6b http", res, card)
     print(f"    dia-1.6b http /tts/stream: first audio after {first_audio_s:.2f} s, whole "
           f"stream {stream_s:.2f} s ({DIA_HTTP_TOKENS} tokens in segments of 32) on {card}")
-    phase("dia http", counts == want and sizes == [4] and equal == 4 and stream_equal,
+    print(f"    dia-1.6b http /tts/stream with a /tts sent during it: stream == its solo "
+          f"generate_stream {inter_equal['stream']}, /tts == its solo generate "
+          f"{inter_equal['tts']}, the /tts reply before the stream's end {interleaved}; "
+          f"state pool {res['pool']}")
+    phase("dia http", counts == want and sizes == [4, 1] and equal == 4 and stream_equal
+          and all(inter_equal.values()),
           f"4 concurrent /tts (max_tokens {DIA_HTTP_TOKENS}, bucket {DIA_HTTP_BUCKET}) in "
           f"batches {sizes}, WAVs equal to a direct generate of {stacked}: {equal}/4; "
           f"/tts/stream == generate_stream: {stream_equal}, first audio {first_audio_s:.2f} s; "
+          f"a /tts/stream and a /tts at once each equal to its solo run: {inter_equal}; "
           f"launches {counts} == {want}; warm-up {warm_s:.2f} s on {card}")
     return res
 
@@ -4162,8 +4426,10 @@ def _par_train_ref(tmp: Path, card: str) -> dict:
 
 
 def _par_dia_run(dia, kw: dict) -> dict:
-    """Greedy codes of DIA_TEXTS with the sampler's logits of every step."""
+    """Greedy codes of DIA_TEXTS with the sampler's logits of every step,
+    from the eager steps."""
     from neuralcodecs_tpu_torch.models.dia import model as dia_model
+    from neuralcodecs_tpu_torch.ops.graphs import graphs_disabled
 
     sampler, logits = dia_model._sample_next_token, []
 
@@ -4173,7 +4439,8 @@ def _par_dia_run(dia, kw: dict) -> dict:
 
     dia_model._sample_next_token = recorded
     try:
-        codes, lengths = dia.generate_codes(DIA_TEXTS, **kw)
+        with graphs_disabled():   # a replay runs no Python sampler to record
+            codes, lengths = dia.generate_codes(DIA_TEXTS, **kw)
     finally:
         dia_model._sample_next_token = sampler
     return {"codes": np.asarray(codes), "lengths": np.asarray(lengths), "logits": logits}

@@ -50,12 +50,18 @@
 // reads ys[t-1] and writes ys[t], and no block reads ys[t] before every
 // block has arrived from step t, so nothing is overwritten while read.
 //
-// The counter lives in device memory for the life of the library and is
-// never reset: the host keeps the count of arrivals launched so far on each
-// device and passes the launch's starting value, so a launch waits for
-// start + blocks t. Launches on one device therefore must not overlap; the
-// port issues them on torch's current stream. No fast-math intrinsics:
-// expf and tanhf keep the kernel within 1e-5 of the plain PyTorch loop.
+// The counter lives in device memory for the life of the library. Each
+// launch is two nodes on its stream: a cudaMemsetAsync that zeroes the
+// counter, then the kernel, which waits for blocks x t arrivals at step t.
+// Nothing of a launch is kept on the host, so a launch captured into a
+// CUDA graph replays right after any other launch, eager or replayed.
+// The counter is one a device, so launches on one device must not overlap;
+// the port issues them on torch's current stream. The kernel goes out through cudaLaunchKernelEx
+// with the cooperative attribute (its co-residency guarantee), which
+// stream capture takes; the shared-memory attribute is set once per
+// instantiation, device and size, outside any capture that follows. No
+// fast-math intrinsics: expf and tanhf keep the kernel within 1e-5 of the
+// plain PyTorch loop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,7 +84,7 @@ constexpr int kStageLoads = 16;            // loads in flight a lane, without bu
 constexpr int kSmemBudget = 200 * 1024;    // bytes of dynamic shared memory
 constexpr int kMaxDevices = 64;
 
-__device__ unsigned long long g_arrivals;  // blocks that finished a step, ever
+__device__ unsigned long long g_arrivals;  // blocks that finished a step, this launch
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -151,7 +157,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                  const float* h0, const float* __restrict__ c0, float* ys,
                  float* __restrict__ h_f, float* __restrict__ c_f, int T, int B, int H,
-                 int BS, int bulk, unsigned long long start) {
+                 int BS, int bulk) {
   constexpr int R = 4 * kUnits;   // weight rows of this block
   constexpr int KP = 128 * NC;    // h row stride in shared memory
   extern __shared__ __align__(16) float smem[];
@@ -224,7 +230,7 @@ lstm_scan_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         // ---- handoff: wait until every block has stored h_{t-1}
         if (t > 0 && b0 == 0) {
           if (lane == 0) {
-            const unsigned long long want = start + static_cast<unsigned long long>(gridDim.x) * t;
+            const unsigned long long want = static_cast<unsigned long long>(gridDim.x) * t;
             while (load_acquire(&g_arrivals) < want) {
             }
           }
@@ -359,16 +365,46 @@ cudaError_t make_plan(int B, int H, int device, Plan* p) {
   return cudaSuccess;
 }
 
-std::mutex g_arrivals_mutex;
-unsigned long long g_arrivals_launched[kMaxDevices];  // the counter's value once
-                                                      // every launch so far ends
+// Allow `bytes` of dynamic shared memory to `kernel` on `device`, once per
+// size: a runtime call, kept out of every launch after the first of a shape.
+cudaError_t allow_smem(const void* kernel, int device, size_t bytes) {
+  struct Allowed {
+    const void* kernel;
+    int device;
+    size_t bytes;
+  };
+  static std::mutex mu;
+  static Allowed seen[64];
+  static int count = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < count; ++i)
+    if (seen[i].kernel == kernel && seen[i].device == device && seen[i].bytes >= bytes)
+      return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
+  if (err == cudaSuccess && count < 64) seen[count++] = {kernel, device, bytes};
+  return err;
+}
+
+// g_arrivals' address on `device` (the current device), looked up once
+cudaError_t arrivals_counter(int device, void** out) {
+  static std::mutex mu;
+  static void* addr[kMaxDevices] = {};
+  std::lock_guard<std::mutex> lock(mu);
+  if (addr[device] == nullptr) {
+    const cudaError_t err = cudaGetSymbolAddress(&addr[device], g_arrivals);
+    if (err != cudaSuccess) return err;
+  }
+  *out = addr[device];
+  return cudaSuccess;
+}
 
 template <int NC>
 cudaError_t launch(const Plan& p, const float* gx, const float* w_hh, const float* h0,
                    const float* c0, float* ys, float* h_f, float* c_f, int T, int B, int H,
                    int device, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_scan_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
+  const void* kernel = reinterpret_cast<const void*>(lstm_scan_kernel<NC>);
+  cudaError_t err = allow_smem(kernel, device, p.smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lstm_scan_kernel<NC>, kThreads,
@@ -379,16 +415,25 @@ cudaError_t launch(const Plan& p, const float* gx, const float* w_hh, const floa
   // start on 16 bytes
   int bulk = H % 128 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0 &&
              reinterpret_cast<uintptr_t>(ys) % 16 == 0;
-  std::lock_guard<std::mutex> lock(g_arrivals_mutex);
-  unsigned long long start = g_arrivals_launched[device];
-  int t = T, b = B, h = H, bs = p.BS;
-  void* args[] = {&gx, &w_hh, &h0, &c0, &ys, &h_f, &c_f, &t, &b, &h, &bs, &bulk, &start};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_scan_kernel<NC>),
-                                    dim3(p.blocks), dim3(kThreads), args, p.smem, stream);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err == cudaSuccess)
-    g_arrivals_launched[device] = start + static_cast<unsigned long long>(p.blocks) * T;
-  return err;
+  void* counter = nullptr;
+  err = arrivals_counter(device, &counter);
+  if (err != cudaSuccess) return err;
+  // the launch's arrivals count from 0: the reset is a node of the stream
+  err = cudaMemsetAsync(counter, 0, sizeof(unsigned long long), stream);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<NC>, gx, w_hh, h0, c0, ys, h_f, c_f, T, B, H,
+                           p.BS, bulk);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

@@ -3,8 +3,9 @@
 Counterpart of neuralcodecs_tpu.diagnostics (the reference's
 NeuralCodecs.Diagnostics: DiagnosticsContext, TensorLogger / TensorSaver /
 TensorComparison, null-object pattern). ``profiler`` holds the trace,
-annotation and NaN-guard helpers; the JAX package's ``xplane`` reader has
-no counterpart here (``torch.profiler`` writes Chrome traces).
+annotation and NaN-guard helpers; ``xplane`` sums the device time by op of
+the Chrome traces that ``profiler.trace`` writes (the JAX package's reader
+of ``jax.profiler``'s XSpace files).
 """
 
 from neuralcodecs_tpu_torch.diagnostics.context import (

@@ -9,9 +9,12 @@ projection folds the 1/sqrt(d)) and GQA shares each K/V head across its
 query group.
 
 The decode cache (``KVCacheSlot``) is preallocated and written in place, one
-slot a step. A decode step knows its position on the host, so the reads of
-a step take Python-int slices of the cache (slots 0..step, the causal
-window) and need no device read.
+slot a step, at a step index held on the device (``index_copy_``). Every
+read of a step has a fixed shape, so the step can be captured into a CUDA
+graph and replayed at any position: the full read takes the whole buffer
+masked to slots <= step, as the JAX package does; the blocked read takes a
+fixed number of blocks (the host knows how many the step needs) and masks
+the last block's slots past the step.
 """
 
 from __future__ import annotations
@@ -250,6 +253,14 @@ def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def step_index(index: int | torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A decode step's position as the [1] int64 device tensor the step
+    reads: kept as it is when it is one already."""
+    if isinstance(index, torch.Tensor):
+        return index.reshape(1)
+    return torch.tensor([int(index)], dtype=torch.int64, device=device)
+
+
 class KVCacheSlot:
     """Preallocated decode cache: k/v [B, maxT, Nkv, Dh], written in place.
 
@@ -275,22 +286,23 @@ class KVCacheSlot:
         return KVCacheSlot(torch.zeros(shape, dtype=dtype, device=device),
                            torch.zeros(shape, dtype=dtype, device=device))
 
-    def _write(self, k: torch.Tensor, v: torch.Tensor, start: int) -> None:
-        end = start + k.shape[1]
+    def _write(self, k: torch.Tensor, v: torch.Tensor, slots: torch.Tensor) -> None:
         if self.k_scale is not None:
             (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
-            self.k_scale[:, start:end] = ks
-            self.v_scale[:, start:end] = vs
-        self.k[:, start:end] = k
-        self.v[:, start:end] = v
+            self.k_scale.index_copy_(1, slots, ks.to(self.k_scale.dtype))
+            self.v_scale.index_copy_(1, slots, vs.to(self.v_scale.dtype))
+        self.k.index_copy_(1, slots, k.to(self.k.dtype))
+        self.v.index_copy_(1, slots, v.to(self.v.dtype))
 
-    def update(self, k_new: torch.Tensor, v_new: torch.Tensor, index: int) -> None:
-        """Write one step's [B, 1, Nkv, Dh] at slot ``index``, in place."""
-        self._write(k_new, v_new, index)
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor,
+               index: int | torch.Tensor) -> None:
+        """Write one step's [B, 1, Nkv, Dh] at slot ``index`` (an int, or a
+        [1] int64 tensor on the cache's device), in place."""
+        self._write(k_new, v_new, step_index(index, self.k.device))
 
     def prefill_write(self, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write the prompt block [B, T, Nkv, Dh] at slots 0..T-1, in place."""
-        self._write(k, v, 0)
+        self._write(k, v, torch.arange(k.shape[1], device=self.k.device))
 
     def kv(self, dtype, length: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """(k, v) of slots 0..length-1 (all by default), dequantized if int8."""
@@ -302,12 +314,16 @@ class KVCacheSlot:
         return k, v
 
 
-def _blocked_decode_attn(q: torch.Tensor, cache: KVCacheSlot, step: int,
-                         block: int, int8_dot: bool = False) -> torch.Tensor:
+def _blocked_decode_attn(q: torch.Tensor, cache: KVCacheSlot, step: int | torch.Tensor,
+                         block: int, int8_dot: bool = False,
+                         n_blocks: int | None = None) -> torch.Tensor:
     """Decode-step GQA attention over the cache in ``block``-slot slices, up
     to slot ``step``: flash-style running max ``m``, denominator ``l`` and
-    weighted sum ``acc`` in f32 (f64 in the reference mode). The last block is cut at slot ``step`` (the
-    JAX form masks the slots past it to -inf: they add nothing).
+    weighted sum ``acc`` in f32 (f64 in the reference mode). ``n_blocks``
+    blocks are read whole, the count the step needs (``step // block + 1``,
+    the default for an int ``step``); the last block's slots past ``step``
+    are masked to -inf, as the JAX form masks them, so a step index held on
+    the device gives every step of one block count the same shapes.
 
     ``int8_dot`` (int8 cache only): q is quantized per row and q·k is a
     product of integers; the v-scale-folded softmax numerators are
@@ -327,11 +343,14 @@ def _blocked_decode_attn(q: torch.Tensor, cache: KVCacheSlot, step: int,
         assert block <= 1024, f"int8-dot read needs block <= 1024 for exact f32 sums, got {block}"
         q_scale = torch.clamp(torch.amax(torch.abs(qg), dim=-1, keepdim=True) / 127.0, min=1e-30)
         q_int = torch.clamp(torch.round(qg / q_scale), -127, 127)
+    if n_blocks is None:
+        n_blocks = int(step) // block + 1
+    step = step_index(step, q.device)
     m = torch.full((b, nkv, groups), -math.inf, dtype=qg.dtype, device=q.device)
     l = torch.zeros((b, nkv, groups), dtype=qg.dtype, device=q.device)
     acc = torch.zeros((b, nkv, groups, dh), dtype=qg.dtype, device=q.device)
-    for start in range(0, step + 1, block):
-        end = min(start + block, step + 1)
+    for j in range(n_blocks):
+        start, end = j * block, (j + 1) * block
         kb = cache.k[:, start:end].to(qg.dtype)
         vb = cache.v[:, start:end].to(qg.dtype)
         if int8_dot:
@@ -343,6 +362,9 @@ def _blocked_decode_attn(q: torch.Tensor, cache: KVCacheSlot, step: int,
                 kb = kb * cache.k_scale[:, start:end, :, None]
                 vb = vb * cache.v_scale[:, start:end, :, None]
             logits = torch.einsum("bkgd,bskd->bkgs", qg, kb)
+        if j == n_blocks - 1:
+            live = torch.arange(start, end, device=q.device) <= step
+            logits = torch.where(live, logits, -math.inf)
         m_new = torch.maximum(m, torch.amax(logits, dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -390,20 +412,27 @@ class Attention(nn.Module):
         return self.o_proj(sdpa_gqa(q, k, v, mask))
 
     def step_attn(self, x: torch.Tensor, position: torch.Tensor, cache: KVCacheSlot,
-                  index: int, kv_block: int = 0, kv_dot: bool = False) -> torch.Tensor:
+                  index: int | torch.Tensor, kv_block: int = 0, kv_dot: bool = False,
+                  n_blocks: int | None = None) -> torch.Tensor:
         """One decode step: x [B, 1, D], position [B, 1]. Writes slot
-        ``index`` of ``cache`` in place, then attends over slots 0..index,
-        the causal window the decode loop masks to. ``kv_block > 0`` reads
-        in blocks (``_blocked_decode_attn``, optionally with ``kv_dot``);
-        0 reads the slots at once."""
+        ``index`` (an int or a [1] device tensor) of ``cache`` in place,
+        then attends over slots 0..index, the causal window the decode loop
+        masks to. ``kv_block > 0`` reads ``n_blocks`` blocks
+        (``_blocked_decode_attn``, optionally with ``kv_dot``); 0 reads the
+        whole buffer, masked."""
+        if kv_block and n_blocks is None:
+            n_blocks = int(index) // kv_block + 1
+        index = step_index(index, x.device)
         q = apply_rope(self.q_proj(x), position, self.timescale)
         k = apply_rope(self.k_proj(x), position, self.timescale)
         cache.update(k, self.v_proj(x), index)
         if kv_block:
-            out = _blocked_decode_attn(q, cache, index, kv_block, int8_dot=kv_dot)
+            out = _blocked_decode_attn(q, cache, index, kv_block, int8_dot=kv_dot,
+                                       n_blocks=n_blocks)
         else:
-            ck, cv = cache.kv(q.dtype, index + 1)
-            out = sdpa_gqa(q, ck, cv, None)
+            ck, cv = cache.kv(q.dtype)
+            live = torch.arange(ck.shape[1], device=x.device) <= index
+            out = sdpa_gqa(q, ck, cv, live.expand(q.shape[0], 1, ck.shape[1]))
         return self.o_proj(out)
 
     def cross_attn(self, x: torch.Tensor, positions: torch.Tensor, cache: KVCacheSlot,

@@ -7,14 +7,32 @@ per-layer cross-attention caches, the delay-pattern audio prefill, the
 autoregressive decode loop with its EOS / delay countdown, then delay revert
 and the DAC vocoder bridge.
 
-The JAX package runs the whole loop as one ``lax.while_loop``. Here the
-loop is eager and the host steps it: every slice offset and trip count of a
-step comes from the step index, a Python int, so a step reads nothing back
-from the device. The loop's stop test (every row's countdown drained) is the
-one device->host read, made once every ``_SYNC_EVERY`` steps; a step taken
-after the last row finished leaves the loop state as it was. The loop state
-(``_LoopState``: codes buffer, countdowns, caches, noise streams) stays on
-the device between calls, which makes generation resumable in segments
+The JAX package runs the whole loop as one ``lax.while_loop`` in one jit.
+Here the host steps the loop, and a step is one function of state kept on
+the device (``_LoopState``: codes buffer, countdowns, caches, the step index
+and the token limit as device scalars, the noise streams), written in place.
+Its shapes depend only on the batch, the buffer, the text bucket and, for
+the blocked KV read, the number of blocks the step reads, which the host
+knows from its own copy of the step index. On a CUDA device each step is
+therefore a CUDA graph (ops/graphs.py), captured once for each such shape,
+sampling constants and state slot, and replayed: the host's work for a step
+is one ``replay()``. The eager step, the same function, runs on the CPU,
+under tensor parallelism (its collectives stage through the host) and inside
+``ops.graphs.graphs_disabled()``.
+
+Generations interleave (a ``/tts/stream`` holds the device only for a
+segment), so the captured states are a pool: a generation borrows a slot of
+its shape, ``_start_state`` fills the slot's buffers, and the slot goes back
+when the codes are copied out or the stream ends, a closed one included.
+Any change to the weights or the cache mode (``quantize_int8`` /
+``quantize_int4``, ``enable_int8_kv_cache``, ``load_state_dict``, ``.to()``)
+drops the graphs and the pool, as ``release_generation_caches()`` does for
+every model.
+
+The loop's stop test (every row's countdown drained) is the one
+device->host read, made once every ``_SYNC_EVERY`` steps; a step taken after
+the last row finished leaves the loop state as it was. The loop state stays
+on the device between calls, which makes generation resumable in segments
 (``generate_codes_stream``).
 
 Sampling draws ``argmax(logits + G)``, as ``jax.random.categorical`` does,
@@ -25,9 +43,12 @@ leaves the real rows' tokens unchanged.
 
 from __future__ import annotations
 
+import itertools
 import math
 import sys
+import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -48,6 +69,7 @@ from neuralcodecs_tpu_torch.models.dia.layers import (
     MlpBlock,
     RMSNorm,
 )
+from neuralcodecs_tpu_torch.ops.graphs import GraphCache, graphs_enabled, step_graph
 
 # steps between two reads of the loop's stop test, the decode loop's only
 # device->host transfer; up to _SYNC_EVERY - 1 steps may run after the last
@@ -95,11 +117,13 @@ class _DecoderLayer(nn.Module):
                                                 cross_mask)
         return x + self.mlp(self.pre_mlp_norm(x))
 
-    def step(self, x: torch.Tensor, position: torch.Tensor, index: int,
+    def step(self, x: torch.Tensor, position: torch.Tensor, index: int | torch.Tensor,
              self_cache: KVCacheSlot, cross_cache: KVCacheSlot, cross_mask: torch.Tensor,
-             kv_block: int = 0, kv_dot: bool = False) -> torch.Tensor:
+             kv_block: int = 0, kv_dot: bool = False,
+             n_blocks: int | None = None) -> torch.Tensor:
         x = x + self.self_attention.step_attn(self.pre_sa_norm(x), position, self_cache, index,
-                                              kv_block=kv_block, kv_dot=kv_dot)
+                                              kv_block=kv_block, kv_dot=kv_dot,
+                                              n_blocks=n_blocks)
         x = x + self.cross_attention.cross_attn(self.pre_ca_norm(x), position, cross_cache,
                                                 cross_mask)
         return x + self.mlp(self.pre_mlp_norm(x))
@@ -136,11 +160,17 @@ class _RowNoise:
     drawn so far."""
 
     def __init__(self, seed: int, rows: int, device: torch.device):
-        self.seed, self.rows, self.device, self.draws = int(seed), rows, device, 0
-        self.generators = [
-            torch.Generator(device=device).manual_seed(
-                int(np.random.SeedSequence([self.seed, i]).generate_state(1)[0]))
-            for i in range(rows)]
+        self.rows, self.device = rows, device
+        self.generators = [torch.Generator(device=device) for _ in range(rows)]
+        self.reseed(seed)
+
+    def reseed(self, seed: int) -> "_RowNoise":
+        """Restart every row's stream at (seed, row), in place: a pooled
+        state keeps the generators its graphs registered."""
+        self.seed, self.draws = int(seed), 0
+        for i, g in enumerate(self.generators):
+            g.manual_seed(int(np.random.SeedSequence([self.seed, i]).generate_state(1)[0]))
+        return self
 
 
 def gumbel_noise(noise: _RowNoise, shape: tuple[int, ...]) -> torch.Tensor:
@@ -152,7 +182,7 @@ def gumbel_noise(noise: _RowNoise, shape: tuple[int, ...]) -> torch.Tensor:
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
 
 
-@dataclass
+@dataclass(frozen=True)
 class _Sampling:
     temperature: float
     top_k: int
@@ -164,9 +194,11 @@ class _Sampling:
 
 @dataclass
 class _LoopState:
-    """The decode loop's state, on the model's device; ``step`` (the
-    position the next step decodes) is known on the host."""
+    """The decode loop's state, on the model's device, every tensor written
+    in place by a step; ``step`` (the position the next step decodes) is
+    known on the host as well as in ``step_t``."""
     step: int
+    step_t: torch.Tensor           # [1] int64, the device's copy of ``step``
     generated: torch.Tensor        # [B, maxT, C] int64, -1 = not yet written
     eos_detected: torch.Tensor     # [B] bool
     finished: torch.Tensor         # [B] int64, -1 until the row's EOS
@@ -177,10 +209,64 @@ class _LoopState:
     invalid: torch.Tensor          # [C, V] bool: tokens no channel may sample
     delay: torch.Tensor            # [C] int64
     noise: _RowNoise
-    token_limit: int
-    last_prefill_step: int
+    token_limit: torch.Tensor      # 0-d int64: EOS forced from token_limit - max_delay
+    last_prefill: torch.Tensor     # 0-d int64: the last row's first decode position
     # under tp: whether the ranks ever sampled different tokens (0-d bool)
     disagree: torch.Tensor | None = None
+    # a pooled slot's: its pool key, and its graphs by block count for the
+    # generation's sampling constants (None: the steps run eagerly)
+    key: tuple | None = None
+    slot_id: int = -1
+    owner: object = None
+    graphs: dict | None = None
+
+
+def _tensors(st: _LoopState) -> list[torch.Tensor]:
+    caches = [t for c in st.self_caches + st.cross_caches
+              for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+    return [st.step_t, st.generated, st.eos_detected, st.finished, st.countdown,
+            st.cross_mask, st.invalid, st.delay, st.token_limit, st.last_prefill, *caches]
+
+
+class _StatePool:
+    """A model's captured decode states: free slots by (batch, buffer, text
+    bucket, int8 cache, compute dtype), the step graphs of every slot in one
+    GraphCache (one memory pool), and the bytes the slots hold."""
+
+    def __init__(self, device: torch.device):
+        self.free: dict[tuple, list[_LoopState]] = {}
+        self.graphs = GraphCache(device)
+        self.lock = threading.Lock()
+        self.ids = itertools.count()
+        self.slots = 0
+        self.state_bytes = 0
+
+    def borrow(self, key: tuple) -> _LoopState | None:
+        with self.lock:
+            free = self.free.get(key)
+            return free.pop() if free else None
+
+    def give_back(self, st: _LoopState) -> None:
+        st.graphs = None
+        with self.lock:
+            self.free.setdefault(st.key, []).append(st)
+
+    def adopt(self, st: _LoopState, key: tuple) -> None:
+        """Count a newly made state as the pool's."""
+        st.key, st.slot_id, st.owner = key, next(self.ids), self
+        with self.lock:
+            self.slots += 1
+            self.state_bytes += sum(t.numel() * t.element_size() for t in _tensors(st))
+
+    def stats(self) -> dict:
+        """Slots made, their GB (which only grows until the pool is
+        dropped), graphs captured and their capture seconds."""
+        return {"slots": self.slots, "state_gb": self.state_bytes / 1e9,
+                "graphs": len(self.graphs.graphs), "capture_s": self.graphs.capture_s}
+
+
+# every Dia made, for release_generation_caches()
+_MODELS: "weakref.WeakSet[Dia]" = weakref.WeakSet()
 
 
 def _decoder_receptive_field_frames(rates: Sequence[int],
@@ -263,6 +349,7 @@ class Dia(nn.Module):
         # blocked read, ignored otherwise (with a notice)
         self.kv_dot_int8 = False
         self._notices_seen: set[str] = set()
+        _MODELS.add(self)
 
     @property
     def device(self) -> torch.device:
@@ -319,8 +406,37 @@ class Dia(nn.Module):
     def enable_int8_kv_cache(self, enabled: bool = True) -> "Dia":
         """Store the decode self-attention KV cache as int8 (+ per-position
         scales)."""
+        self.release_graphs()
         self.kv_cache_int8 = bool(enabled)
         return self
+
+    # ------------------------------------------------------------ graphs
+
+    def _graphed(self) -> bool:
+        """Whether generation replays captured steps: a CUDA device, no
+        tensor parallelism, graphs not turned off."""
+        return self.tp_group is None and graphs_enabled(self.device)
+
+    def _state_pool(self) -> _StatePool:
+        pool = self.__dict__.get("_pool")
+        if pool is None:
+            pool = self.__dict__["_pool"] = _StatePool(self.device)
+        return pool
+
+    def graph_stats(self) -> dict:
+        """The state pool's slots, GB, graphs and capture seconds."""
+        pool = self.__dict__.get("_pool")
+        return pool.stats() if pool is not None else _StatePool(self.device).stats()
+
+    def release_graphs(self) -> None:
+        """Drop every captured step and the state pool: the weights or the
+        cache mode they were captured with changed."""
+        self.__dict__["_pool"] = None
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to(), .cuda(), .double() ...: the graphs read the old storage
+        self.release_graphs()
+        return super()._apply(fn, *args, **kwargs)
 
     # ------------------------------------------------------------ weights
 
@@ -328,6 +444,7 @@ class Dia(nn.Module):
         """Load a Dia checkpoint: numpy arrays or tensors, keys with or
         without upstream's ``model.`` prefix. Keys the model lacks are
         ignored; a key it needs and the checkpoint lacks raises LoadError."""
+        self.release_graphs()
         sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
         tensors = {}
         for key in self.state_dict():
@@ -367,6 +484,7 @@ class Dia(nn.Module):
     def quantize_int8(self) -> "Dia":
         """Weight-only int8 of every DenseGeneral kernel, on the device and in
         place: each f32 kernel is freed as its int8 form lands."""
+        self.release_graphs()
         for dense in (*self._dense_layers(), self.decoder.logits_dense):
             dense.quantize_int8()
         return self
@@ -375,6 +493,7 @@ class Dia(nn.Module):
         """Weight-only int4 (nibble-packed, group-wise scales) of the
         transformer kernels; the logits head, which shapes the sampling
         distribution, takes int8. On the device and in place."""
+        self.release_graphs()
         for dense in self._dense_layers():
             dense.quantize_int4(group_size)
         self.decoder.logits_dense.quantize_int8()
@@ -433,10 +552,11 @@ class Dia(nn.Module):
     def _start_state(self, text_tokens: np.ndarray, prefill: torch.Tensor,
                      prefill_steps: np.ndarray, seed: int, row_active: np.ndarray, *,
                      max_tokens: int, token_limit: int | None = None,
-                     kv_int8: bool = False) -> _LoopState:
+                     kv_int8: bool = False, into: _LoopState | None = None) -> _LoopState:
         """Encoder, cross caches and decoder prefill -> the loop state of a
         ``max_tokens`` buffer, EOS forced at ``token_limit`` (default the
-        buffer)."""
+        buffer). ``into``: a pooled state of the same shapes whose buffers
+        are filled in place (and returned) instead of new ones."""
         cfg, data, dev = self.config, self.config.data, self.device
         b = text_tokens.shape[0]
         channels, eos, pad = data.channels, data.audio_eos_value, data.audio_pad_value
@@ -453,11 +573,18 @@ class Dia(nn.Module):
         cross_mask = padding_mask[:, None, :]
 
         d = cfg.decoder
-        self_caches = [KVCacheSlot.zeros(2 * b, max_tokens, layer.self_attention.n_kv,
-                                         d.gqa_head_dim, self.compute_dtype, quantized=kv_int8,
-                                         device=dev)
-                       for layer in self.decoder.layers]
-        generated = torch.full((b, max_tokens, channels), -1, dtype=torch.int64, device=dev)
+        if into is None:
+            self_caches = [KVCacheSlot.zeros(2 * b, max_tokens, layer.self_attention.n_kv,
+                                             d.gqa_head_dim, self.compute_dtype,
+                                             quantized=kv_int8, device=dev)
+                           for layer in self.decoder.layers]
+            generated = torch.full((b, max_tokens, channels), -1, dtype=torch.int64, device=dev)
+        else:
+            self_caches, generated = into.self_caches, into.generated.fill_(-1)
+            for cache in self_caches:
+                for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+                    if t is not None:
+                        t.zero_()
         t_pre = prefill.shape[1]
         generated[:, :t_pre] = prefill
 
@@ -478,40 +605,59 @@ class Dia(nn.Module):
         # batch-padding rows start with countdown 0 ("already finished") so
         # they never hold the loop open past the real rows' EOS
         active = torch.as_tensor(row_active, device=dev)
-        return _LoopState(
-            step=int(prefill_steps.min()) - 1, generated=generated,
+        step = int(prefill_steps.min()) - 1
+        st = _LoopState(
+            step=step, step_t=torch.tensor([step], dtype=torch.int64, device=dev),
+            generated=generated,
             eos_detected=torch.zeros(b, dtype=torch.bool, device=dev),
             finished=torch.full((b,), -1, dtype=torch.int64, device=dev),
             countdown=torch.where(active, -1, 0).to(torch.int64),
             self_caches=self_caches, cross_caches=cross_caches, cross_mask=cross_mask,
             invalid=(vocab > eos) | (~first & (vocab >= eos)),
             delay=torch.tensor(data.delay_pattern, dtype=torch.int64, device=dev),
-            noise=_RowNoise(seed, b, dev),
-            token_limit=max_tokens if token_limit is None else token_limit,
-            last_prefill_step=int(prefill_steps.max()),
+            noise=_RowNoise(seed, b, dev) if into is None else into.noise.reseed(seed),
+            token_limit=torch.tensor(max_tokens if token_limit is None else token_limit,
+                                     dtype=torch.int64, device=dev),
+            last_prefill=torch.tensor(int(prefill_steps.max()), dtype=torch.int64, device=dev),
             disagree=None if self.tp_group is None else torch.zeros((), dtype=torch.bool,
                                                                    device=dev))
+        if into is None:
+            return st
+        for name in ("step_t", "eos_detected", "finished", "countdown", "cross_mask", "invalid",
+                     "delay", "token_limit", "last_prefill"):
+            getattr(into, name).copy_(getattr(st, name))
+        for dst, src in zip(into.cross_caches, cross_caches):
+            dst.k.copy_(src.k)
+            dst.v.copy_(src.v)
+        into.step = step
+        return into
 
-    def _decode_step(self, st: _LoopState, s: _Sampling) -> None:
-        """One step of the loop at position ``st.step``, in place. Reads
-        nothing back from the device. Once every row's countdown is 0 a step
-        changes no state: no row is active, so nothing triggers or drains,
-        and the token writeback keeps what is there; the cache slot it
-        writes lies past every step taken, which no later step reads."""
+    def _decode_step(self, st: _LoopState, s: _Sampling, n_blocks: int | None = None) -> None:
+        """One step of the loop at position ``st.step_t``, every state
+        tensor written in place; the host's ``st.step`` is left to the
+        caller (``_advance``). Reads nothing back from the device, and its
+        shapes depend on ``n_blocks`` (the blocks the blocked KV read takes;
+        by default what ``st.step`` needs) and not on the step, so it is the
+        function the step graphs capture. Once every row's countdown is 0 a
+        step changes no state: no row is active, so nothing triggers or
+        drains, and the token writeback keeps what is there; the cache slot
+        it writes lies past every step taken, which no later step reads."""
         data = self.config.data
         eos, pad = data.audio_eos_value, data.audio_pad_value
         max_delay = max(data.delay_pattern)
-        step = st.step
+        if s.kv_block and n_blocks is None:
+            n_blocks = st.step // s.kv_block + 1
         b, _, channels = st.generated.shape
 
-        tokens = st.generated[:, None, step].expand(b, 2, channels).reshape(2 * b, channels)
+        tokens = st.generated.index_select(1, st.step_t).expand(b, 2, channels)
+        tokens = tokens.reshape(2 * b, channels)
         tokens = torch.where(tokens < 0, pad, tokens)[:, None]             # [2B, 1, C]
-        position = torch.full((2 * b, 1), step, dtype=torch.int64, device=tokens.device)
+        position = st.step_t.expand(2 * b, 1)
         x = self._embed_tokens(tokens)
         for layer, self_cache, cross in zip(self.decoder.layers, st.self_caches,
                                             st.cross_caches):
-            x = layer.step(x, position, step, self_cache, cross, st.cross_mask,
-                           kv_block=s.kv_block, kv_dot=s.kv_dot)
+            x = layer.step(x, position, st.step_t, self_cache, cross, st.cross_mask,
+                           kv_block=s.kv_block, kv_dot=s.kv_dot, n_blocks=n_blocks)
         logits = self._decoder_logits(x)[:, -1].reshape(b, 2, channels, -1).to(torch.float32)
         uncond, cond = logits[:, 0], logits[:, 1]
         logits = cond + s.cfg_scale * (cond - uncond)                     # [B, C, V]
@@ -521,7 +667,6 @@ class Dia(nn.Module):
         noise = None
         if s.temperature >= 1e-5:
             noise = gumbel_noise(st.noise, tuple(logits.shape[1:]))
-        st.noise.draws += 1
         pred = _sample_next_token(logits.reshape(b * channels, -1),
                                   None if noise is None else noise.reshape(b * channels, -1),
                                   s.temperature, s.top_k, s.top_p, eos).reshape(b, channels)
@@ -532,26 +677,37 @@ class Dia(nn.Module):
 
         # EOS detection and the delay countdown
         done = torch.all(st.countdown == 0)
-        step_idx = step + 1
+        step_idx = st.step_t + 1
         active = st.countdown != 0
         is_eos = ~st.eos_detected & (pred[:, 0] == eos) & active
         trigger = active & (is_eos | (step_idx >= st.token_limit - max_delay))
-        st.eos_detected = st.eos_detected | trigger
+        st.eos_detected |= trigger
         start = trigger & (st.countdown < 0)
-        st.countdown = torch.where(start, max_delay, st.countdown)
-        st.finished = torch.where(start, step_idx, st.finished)
+        st.countdown.copy_(torch.where(start, max_delay, st.countdown))
+        st.finished.copy_(torch.where(start, step_idx, st.finished))
         draining = st.countdown > 0
         step_after = (max_delay - st.countdown)[:, None]
         pred = torch.where(draining[:, None] & (step_after == st.delay), eos, pred)
         pred = torch.where(draining[:, None] & (step_after > st.delay), pad, pred)
-        st.countdown = torch.where(draining, st.countdown - 1, st.countdown)
+        st.countdown.sub_(draining.to(torch.int64))
 
         # BOS-protected writeback: prompt tokens stay until the prefill's
-        # delayed channels are past
-        existing = st.generated[:, step_idx]
-        keep = done | (existing != -1) if step - st.last_prefill_step <= max_delay else done
-        st.generated[:, step_idx] = torch.where(keep, existing, pred)
-        st.step = step_idx
+        # delayed channels are past (JAX's bos_over)
+        existing = st.generated.index_select(1, step_idx)[:, 0]
+        bos_over = (st.step_t - st.last_prefill) > max_delay
+        keep = done | ((existing != -1) & ~bos_over)
+        st.generated.index_copy_(1, step_idx, torch.where(keep, existing, pred)[:, None])
+        st.step_t.add_(1)
+
+    def _advance(self, st: _LoopState, s: _Sampling) -> None:
+        """One step: the replay of the graph of the step's block count, or
+        the eager step; then the host's copy of the step and the draws."""
+        if st.graphs is None:
+            self._decode_step(st, s)
+        else:
+            st.graphs[st.step // s.kv_block + 1 if s.kv_block else 0].replay()
+        st.step += 1
+        st.noise.draws += 1
 
     @torch.no_grad()
     def _run_loop(self, st: _LoopState, stop: int, s: _Sampling) -> None:
@@ -562,7 +718,7 @@ class Dia(nn.Module):
         while st.step < stop:
             if n % _SYNC_EVERY == 0 and self._stop_test(st):
                 return
-            self._decode_step(st, s)
+            self._advance(st, s)
             n += 1
         if st.disagree is not None:
             self._stop_test(st)
@@ -580,6 +736,51 @@ class Dia(nn.Module):
             raise RuntimeError(f"tensor-parallel ranks sampled different tokens by step "
                                f"{st.step}")
         return bool(done)
+
+    @torch.no_grad()
+    def _loop_state(self, text_arr: np.ndarray, delayed: torch.Tensor,
+                    prefill_steps: np.ndarray, seed: int, row_active: np.ndarray,
+                    buffer_len: int, token_limit: int, s: _Sampling) -> _LoopState:
+        """A generation's started state. Graphed: a slot of the pool,
+        filled, with its graphs for ``s`` (captured now if the slot has none:
+        the captures' warm-up steps run on the slot, which is then filled
+        again); give it back with ``_release_state``. Else a new state."""
+        kw = dict(max_tokens=buffer_len, token_limit=token_limit, kv_int8=self.kv_cache_int8)
+        args = (text_arr, delayed, prefill_steps, seed, row_active)
+        if not self._graphed():
+            return self._start_state(*args, **kw)
+        pool = self._state_pool()
+        key = (text_arr.shape[0], buffer_len, text_arr.shape[1], self.kv_cache_int8,
+               self.compute_dtype)
+        slot = pool.borrow(key)
+        # a slot outlives the thread and mode that made it: its tensors are
+        # normal ones even when made under inference_mode (a server thread)
+        with torch.inference_mode(False), torch.no_grad():
+            st = self._start_state(*args, **kw, into=slot)
+        if slot is None:
+            pool.adopt(st, key)
+        try:
+            counts = list(range(1, buffer_len // s.kv_block + 1)) if s.kv_block else [0]
+            missing = [n for n in counts if (st.slot_id, s, n) not in pool.graphs.graphs]
+            # a greedy step draws no noise: its graphs need no generator
+            generators = st.noise.generators if s.temperature >= 1e-5 else ()
+            for n in missing:
+                pool.graphs.get((st.slot_id, s, n), lambda handle, n=n: step_graph(
+                    lambda: self._decode_step(st, s, n or None), handle,
+                    generators=generators))
+            if missing:
+                self._start_state(*args, **kw, into=st)
+            st.graphs = {n: pool.graphs.graphs[(st.slot_id, s, n)] for n in counts}
+        except BaseException:
+            pool.give_back(st)
+            raise
+        return st
+
+    def _release_state(self, st: _LoopState) -> None:
+        """Give a pooled state back (a new state is left to the collector)."""
+        pool = self.__dict__.get("_pool")
+        if pool is not None and st.owner is pool:
+            pool.give_back(st)
 
     def _sampling(self, buffer_len: int, temperature, top_k, top_p, cfg_scale) -> _Sampling:
         cfg = self.config
@@ -617,7 +818,8 @@ class Dia(nn.Module):
                   audio_prompts: Sequence[np.ndarray] | None = None, seed: int = 0,
                   pad_text_to: int | None = None, pad_tokens_to: int | None = None,
                   pad_batch_to: int | None = None):
-        """The one-shot loop: (final state, prefill steps, real batch size)."""
+        """The one-shot loop: (final state, prefill steps, real batch size).
+        The state may be a pooled one: ``_release_state`` it once read."""
         data = self.config.data
         requested = int(max_tokens or data.audio_length)
         if pad_tokens_to is None:
@@ -637,11 +839,14 @@ class Dia(nn.Module):
             # batch-padding rows must not pull the loop's start step (min
             # over prefill_steps) below the real rows' minimum
             prefill_steps[b_real:] = prefill_steps[:b_real].min()
-        st = self._start_state(text_arr, delayed, prefill_steps, seed, np.arange(b) < b_real,
-                               max_tokens=buffer_len, token_limit=requested,
-                               kv_int8=self.kv_cache_int8)
-        self._run_loop(st, buffer_len - 1,
-                       self._sampling(buffer_len, temperature, top_k, top_p, cfg_scale))
+        sampling = self._sampling(buffer_len, temperature, top_k, top_p, cfg_scale)
+        st = self._loop_state(text_arr, delayed, prefill_steps, seed, np.arange(b) < b_real,
+                              buffer_len, requested, sampling)
+        try:
+            self._run_loop(st, buffer_len - 1, sampling)
+        except BaseException:
+            self._release_state(st)
+            raise
         return st, prefill_steps, b_real
 
     def _codes(self, st: _LoopState, prefill_steps: np.ndarray, b: int):
@@ -690,7 +895,10 @@ class Dia(nn.Module):
             texts, max_tokens=max_tokens, cfg_scale=cfg_scale, temperature=temperature,
             top_p=top_p, top_k=top_k, audio_prompts=audio_prompts, seed=seed,
             pad_text_to=pad_text_to, pad_tokens_to=pad_tokens_to, pad_batch_to=pad_batch_to)
-        codes, lengths, finished = self._codes(st, prefill_steps, b)
+        try:
+            codes, lengths, finished = self._codes(st, prefill_steps, b)
+        finally:
+            self._release_state(st)
         if verbose:
             # 86 tokens = 1 s of audio
             elapsed = time.perf_counter() - start_time
@@ -716,7 +924,8 @@ class Dia(nn.Module):
         concatenation is ``generate_codes([text])``'s codes for the same seed
         and buckets (the loop state, noise streams included, stays on the
         device between segments). A frame is emitted once all of its delayed
-        channels are decoded, ``max(delay_pattern)`` steps behind the head."""
+        channels are decoded, ``max(delay_pattern)`` steps behind the head.
+        A pooled state goes back when the stream ends or is closed."""
         data = self.config.data
         channels = data.channels
         requested = int(max_tokens or data.audio_length)
@@ -727,34 +936,39 @@ class Dia(nn.Module):
         max_delay = max(data.delay_pattern)
         delayed, prefill_steps = self._prefill([audio_prompt], 1)
         sampling = self._sampling(buffer_len, temperature, top_k, top_p, cfg_scale)
-        with torch.no_grad():
-            st = self._start_state(text_arr, delayed, prefill_steps, seed, np.ones(1, bool),
-                                   max_tokens=buffer_len, token_limit=requested,
-                                   kv_int8=self.kv_cache_int8)
-        start = int(prefill_steps[0])
-        emitted = 0
-        while True:
-            self._run_loop(st, min(st.step + int(segment_tokens), buffer_len - 1), sampling)
-            done = st.step >= buffer_len - 1 or bool(torch.all(st.countdown == 0))
-            if done:
-                finished = int(st.finished[0])
-                if finished == -1:
-                    finished = st.step + 1 - max_delay
-                frames_avail = max(finished - start, 0)
-            else:
-                # frame f is complete once row start+f+max_delay is written
-                frames_avail = max(st.step - start - max_delay + 1, 0)
-            if frames_avail > emitted or done:
-                gen = st.generated[0].cpu().numpy()  # [maxT, C]
-                block = np.zeros((frames_avail - emitted, channels), np.int64)
-                for c, dly in enumerate(data.delay_pattern):
-                    lo = start + emitted + dly
-                    block[:, c] = gen[lo:lo + frames_avail - emitted, c]
-                block = np.where((block < 0) | (block > 1023), 0, block)
-                yield block.astype(np.int32), done
-                emitted = frames_avail
-            if done:
-                return
+        st = self._loop_state(text_arr, delayed, prefill_steps, seed, np.ones(1, bool),
+                              buffer_len, requested, sampling)
+        try:
+            start = int(prefill_steps[0])
+            emitted = 0
+            while True:
+                self._run_loop(st, min(st.step + int(segment_tokens), buffer_len - 1), sampling)
+                done = st.step >= buffer_len - 1 or bool(torch.all(st.countdown == 0))
+                if done:
+                    finished = int(st.finished[0])
+                    if finished == -1:
+                        finished = st.step + 1 - max_delay
+                    frames_avail = max(finished - start, 0)
+                else:
+                    # frame f is complete once row start+f+max_delay is written
+                    frames_avail = max(st.step - start - max_delay + 1, 0)
+                if frames_avail > emitted or done:
+                    gen = st.generated[0].cpu().numpy()  # [maxT, C]
+                    block = np.zeros((frames_avail - emitted, channels), np.int64)
+                    for c, dly in enumerate(data.delay_pattern):
+                        lo = start + emitted + dly
+                        block[:, c] = gen[lo:lo + frames_avail - emitted, c]
+                    block = np.where((block < 0) | (block > 1023), 0, block)
+                    if done:
+                        self._release_state(st)
+                        st = None
+                    yield block.astype(np.int32), done
+                    emitted = frames_avail
+                if done:
+                    return
+        finally:
+            if st is not None:
+                self._release_state(st)
 
     # ------------------------------------------------------------ vocoder
 
@@ -888,6 +1102,15 @@ def _sample_next_token(logits: torch.Tensor, noise: torch.Tensor | None, tempera
                                    torch.clamp(cutoff, max=probs.shape[-1] - 1))
         logits = torch.where(probs < sorted_keep, -math.inf, logits)
     return torch.argmax(logits + noise, dim=-1)
+
+
+def release_generation_caches() -> None:
+    """Drop every Dia's captured step graphs and state pool (the JAX
+    package's function of this name drops its compiled generation
+    programs): a process that builds models in turn frees the states and
+    graph memory of the ones it is done with."""
+    for model in list(_MODELS):
+        model.release_graphs()
 
 
 registry.register("dia", Dia, DiaConfig)  # the factory: Dia(config, device=, seed=)

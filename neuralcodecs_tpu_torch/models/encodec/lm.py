@@ -22,11 +22,18 @@ it is (``load_state_dict`` drops a ``model.`` prefix); the JAX package's
 [in, out] parameters cross with ``core.weights.from_jax_params``.
 
 The streaming state is a fixed-size rolling buffer [L, B, P, D] of the last
-P layer inputs (newest at slot P-1) and the absolute offset; a mask hides
-the slots not yet filled. Attention and softmax are plain torch ops: the JAX
-LM has no Pallas kernel. What the .ecdc path needs is that encode and
-decode run the same op sequence at the same shapes on the same device,
-which ``step`` gives (compressor.py). The weights are made on the CPU from
+P layer inputs (newest at slot P-1) and the absolute offset, a device
+scalar; ``step`` rolls the buffer and advances the offset in place, and a
+mask made from the offset on the device hides the slots not yet filled. A
+step's shapes are therefore fixed for a batch and a codebook count, and on
+a CUDA device ``step`` replays one CUDA graph for each (ops/graphs.py: the
+caller's state is copied into the graph's static buffers and back). The
+eager step, the same function, runs on the CPU and inside
+``ops.graphs.graphs_disabled()``. Attention and softmax are plain torch
+ops: the JAX LM has no Pallas kernel. What the .ecdc path needs is that
+encode and decode run the same op sequence at the same shapes on the same
+device, which ``step`` gives (compressor.py), graphed or not: the replay
+runs the eager step's kernels. The weights are made on the CPU from
 an explicit ``torch.Generator``, so one seed gives the same LM on every
 device.
 """
@@ -44,6 +51,7 @@ from torch import nn
 
 from neuralcodecs_tpu_torch.core.config import ModelConfig
 from neuralcodecs_tpu_torch.core.device import resolve_device
+from neuralcodecs_tpu_torch.ops.graphs import GraphCache, StaticStep, graphs_enabled
 
 
 @dataclass
@@ -64,10 +72,11 @@ class EncodecLMConfig(ModelConfig):
 
 
 class LMState(NamedTuple):
-    """Rolling per-layer attention state and the absolute position."""
+    """Rolling per-layer attention state and the absolute position, both
+    on the LM's device and written in place by ``step``."""
 
     buffers: torch.Tensor   # [L, B, P, D], the last P layer inputs, newest at slot P-1
-    offset: int
+    offset: torch.Tensor    # 0-d int64
 
 
 def sin_embedding(positions: torch.Tensor, dim: int, max_period: float) -> torch.Tensor:
@@ -181,9 +190,24 @@ class EncodecLanguageModel(nn.Module):
     def device(self) -> torch.device:
         return self.emb[0].weight.device
 
+    def _graphs(self) -> GraphCache:
+        cache = self.__dict__.get("_graph_cache")
+        if cache is None:
+            cache = self.__dict__["_graph_cache"] = GraphCache(self.device)
+        return cache
+
+    def release_graphs(self) -> None:
+        """Drop the captured steps (the weights they read changed)."""
+        self.__dict__["_graph_cache"] = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self.release_graphs()
+        return super()._apply(fn, *args, **kwargs)
+
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         """Load upstream (or the port's) names, dropping a ``model.`` prefix;
         numpy arrays (or CPU tensors) are copied in. Returns self."""
+        self.release_graphs()
         sd = {(k[len("model."):] if k.startswith("model.") else k): torch.from_numpy(np.array(v))
               for k, v in state_dict.items()}
         super().load_state_dict(sd, strict=strict, assign=assign)
@@ -234,21 +258,36 @@ class EncodecLanguageModel(nn.Module):
     def init_state(self, batch: int = 1) -> LMState:
         cfg = self.config
         return LMState(torch.zeros(cfg.num_layers, batch, cfg.past_context, cfg.dimension,
-                                   device=self.device), 0)
+                                   device=self.device),
+                       torch.zeros((), dtype=torch.int64, device=self.device))
 
     @torch.no_grad()
     def step(self, indices, state: LMState) -> tuple[torch.Tensor, LMState]:
         """One autoregressive step: indices [B, K, 1] shifted codes, K <=
-        num_codebooks -> (pdfs [B, card, K, 1], the next state)."""
-        p_ctx = self.config.past_context
+        num_codebooks -> (pdfs [B, card, K, 1], the state, advanced in
+        place). On a CUDA device, the replay of the graph of (B, K)."""
         indices = self._indices(indices)
-        pos = torch.full((1, 1, 1), float(state.offset), device=self.device)
-        x = self._input(indices, pos)                                     # [B, 1, D]
+        if not graphs_enabled(self.device):
+            return self._step(indices, state.buffers, state.offset), state
+        args = [indices, state.buffers, state.offset]
+        program = self._graphs().get(
+            (tuple(indices.shape), tuple(state.buffers.shape)),
+            lambda pool: StaticStep(self._step, args, n_state=2, pool=pool))
+        return program.run(args), state
+
+    def _step(self, indices: torch.Tensor, buffers: torch.Tensor,
+              offset: torch.Tensor) -> torch.Tensor:
+        """The step on (buffers, offset), rolled and advanced in place ->
+        pdfs. Reads nothing back from the device."""
+        p_ctx = self.config.past_context
+        x = self._input(indices, offset.reshape(1, 1, 1))                 # [B, 1, D]
         # slot i holds the input at position offset - (P - i): valid once >= 0
-        slots = torch.arange(p_ctx + 1, device=self.device)
-        mask = (slots < p_ctx - state.offset)[None, :]                   # [1, P+1]
-        buffers = []
-        for layer, buf in zip(self.transformer.layers, state.buffers):
-            buffers.append(torch.cat([buf[:, 1:], x], dim=1))
-            x = layer(x, torch.cat([buf, x], dim=1), mask)
-        return self._probas(x, indices.shape[1]), LMState(torch.stack(buffers), state.offset + 1)
+        slots = torch.arange(p_ctx + 1, device=indices.device)
+        mask = (slots < p_ctx - offset)[None, :]                          # [1, P+1]
+        for layer, buf in zip(self.transformer.layers, buffers):
+            keys = torch.cat([buf, x], dim=1)
+            x_next = layer(x, keys, mask)
+            buf.copy_(keys[:, 1:])
+            x = x_next
+        offset.add_(1)
+        return self._probas(x, indices.shape[1])

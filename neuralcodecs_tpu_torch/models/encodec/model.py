@@ -128,6 +128,19 @@ class Encodec(CodecWeights, nn.Module):
     def device(self) -> torch.device:
         return self.quantizer.layers[0].codebook.embed.device
 
+    def release_graphs(self) -> None:
+        """Drop the streaming sessions' captured pushes (streaming.py)."""
+        self.__dict__["_graph_cache"] = None
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to(), .cuda() ...: the captured pushes read the old storage
+        self.release_graphs()
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        self.release_graphs()
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
     @property
     def num_codebooks(self) -> int:
         return self.quantizer.num_quantizers

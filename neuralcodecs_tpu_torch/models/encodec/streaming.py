@@ -10,11 +10,19 @@ at each shape).
 
 On a CUDA device every push runs the LSTM kernel once a layer with the
 carried state as h0 / c0, at T = frames in the push (1 for a one-hop push),
-and the codebook kernel once an RVQ stage on B x frames rows. The LSTM
-kernel hands its steps over through a counter in device memory that no
-launch resets, so two of its launches on one device must never overlap: a
-session launches on torch's current stream, and sessions that run in
-threads must share one stream.
+and the codebook kernel once an RVQ stage on B x frames rows. The first
+push of a session runs eagerly: its left padding reflects the chunk's own
+samples. Every later push replays a CUDA graph of its shapes (ops/graphs.py;
+one for each side, batch, hops and n_q, shared by the model's sessions):
+the session keeps its state (conv tails, transposed-conv tails, each
+SLSTM's (h, c)) in one flat buffer, which is copied into the graph's static
+state before the replay and back after, and the output is a copy of the
+graph's. ``warm()`` captures them; ``ops.graphs.graphs_disabled()`` runs the
+eager pushes instead. The LSTM kernel hands its steps over through a
+counter in device memory that each launch zeroes on its stream, so two of
+its launches on one device must never overlap: a session launches (and
+replays) on torch's current stream, and sessions that run in threads must
+share one stream.
 
 Requirements: ``use_causal_conv=True``, no time_group_norm, no per-chunk
 normalisation, an unsegmented model (the 24 kHz preset meets all).
@@ -29,6 +37,15 @@ import numpy as np
 import torch
 
 from neuralcodecs_tpu_torch.core.exceptions import CodecError
+from neuralcodecs_tpu_torch.ops.graphs import (
+    GraphCache,
+    StaticStep,
+    carve,
+    flatten,
+    graphs_enabled,
+    signature,
+    unflatten,
+)
 
 
 def _check_streamable(model) -> None:
@@ -62,6 +79,40 @@ def _norm_blocks(block_hops) -> tuple[int, ...] | None:
     return blocks if blocks and blocks[-1] == 1 else blocks + (1,)
 
 
+def _graphs(model) -> GraphCache:
+    """The model's push programs (dropped with its weights: Encodec._apply)."""
+    cache = model.__dict__.get("_graph_cache")
+    if cache is None:
+        cache = model.__dict__["_graph_cache"] = GraphCache(model.device)
+    return cache
+
+
+def _static_push(session, side, x: torch.Tensor, step) -> torch.Tensor:
+    """A steady push through the program of its shapes: ``step(x, state)
+    -> (out, next state)`` over static copies of x and of the session's
+    state, which the session holds flat (``_flat``, its ``_state`` tree a
+    set of views of it) and gets back advanced in place."""
+    leaves, spec = flatten(session._state)
+    shapes = [tuple(t.shape) for t in leaves]
+    if session._flat is None:
+        if len({t.dtype for t in leaves}) > 1:
+            raise TypeError("a streaming state of several dtypes: "
+                            f"{sorted({str(t.dtype) for t in leaves})}")
+        with torch.inference_mode(False):
+            session._flat = torch.cat([t.reshape(-1) for t in leaves])
+        session._state = unflatten(carve(session._flat, shapes), spec)
+
+    def program(x_in: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+        out, nxt = step(x_in, unflatten(carve(flat, shapes), spec))
+        flat.copy_(torch.cat([t.reshape(-1) for t in flatten(nxt)[0]]))
+        return out
+
+    args = [x, session._flat]
+    key = (side, tuple(x.shape), x.dtype, signature(leaves))
+    return _graphs(session.model).get(
+        key, lambda pool: StaticStep(program, args, n_state=1, pool=pool)).run(args)
+
+
 class StreamingEncoder:
     """Chunked audio in -> RVQ codes out, with carried state.
 
@@ -85,6 +136,7 @@ class StreamingEncoder:
                                                                       model.bandwidth)
         self.block_hops = _norm_blocks(block_hops)
         self._state = None
+        self._flat = None
 
     @torch.no_grad()
     def push(self, audio_chunk) -> torch.Tensor:
@@ -109,26 +161,35 @@ class StreamingEncoder:
         return torch.cat(outs, dim=-1)
 
     def _push_block(self, x: torch.Tensor) -> torch.Tensor:
-        emb, self._state = self.model.encoder.stream(x, self._state)
-        return self.model.quantizer.encode(emb, self.n_q)
+        if self._state is None or not graphs_enabled(self.model.device):
+            codes, self._state = self._step(x, self._state)
+            self._flat = None
+            return codes
+        return _static_push(self, ("encode", self.n_q), x, self._step)
+
+    def _step(self, x: torch.Tensor, state) -> tuple[torch.Tensor, list]:
+        emb, state = self.model.encoder.stream(x, state)
+        return self.model.quantizer.encode(emb, self.n_q), state
 
     def warm(self) -> None:
         """Run a first-chunk and a steady push of every block size on a
-        throwaway state (cuDNN picks its algorithms for each shape); a live
-        session is untouched."""
-        saved = self._state
+        throwaway state (cuDNN picks its algorithms for each shape, and on a
+        CUDA device the steady push's graph is captured); a live session is
+        untouched. The graphs are keyed by the batch too: warm a session of
+        batch 1 here."""
+        saved = self._state, self._flat
         try:
             for nh in self.block_hops or (1,):
-                self._state = None
+                self._state = self._flat = None
                 z = torch.zeros(1, self.model.config.channels, nh * self.hop,
                                 device=self.model.device)
                 self._push_block(z)
                 self._push_block(z)
         finally:
-            self._state = saved
+            self._state, self._flat = saved
 
     def reset(self) -> None:
-        self._state = None
+        self._state = self._flat = None
 
 
 class StreamingDecoder:
@@ -143,6 +204,7 @@ class StreamingDecoder:
         self._default_n_q = model.quantizer.num_quantizers_for_bandwidth(model.frame_rate,
                                                                          model.bandwidth)
         self._state = None
+        self._flat = None
 
     @torch.no_grad()
     def push(self, codes) -> torch.Tensor:
@@ -158,26 +220,33 @@ class StreamingDecoder:
         return torch.cat(outs, dim=1)
 
     def _push_block(self, codes: torch.Tensor) -> torch.Tensor:
-        audio, self._state = self.model.decoder.stream(self.model.quantizer.decode(codes),
-                                                       self._state)
-        return audio.transpose(1, 2)
+        if self._state is None or not graphs_enabled(self.model.device):
+            audio, self._state = self._step(codes, self._state)
+            self._flat = None
+            return audio
+        return _static_push(self, "decode", codes, self._step)
+
+    def _step(self, codes: torch.Tensor, state) -> tuple[torch.Tensor, list]:
+        audio, state = self.model.decoder.stream(self.model.quantizer.decode(codes), state)
+        return audio.transpose(1, 2), state
 
     def warm(self, n_q: int | None = None) -> None:
         """Run a first and a steady push of every block size for one ``n_q``
-        (default: the model bandwidth's) on a throwaway state."""
+        (default: the model bandwidth's) on a throwaway state of batch 1
+        (capturing the steady push's graph on a CUDA device)."""
         n_q = n_q or self._default_n_q
-        saved = self._state
+        saved = self._state, self._flat
         try:
             for nf in self.block_hops or (1,):
-                self._state = None
+                self._state = self._flat = None
                 z = torch.zeros(1, n_q, nf, dtype=torch.int32, device=self.model.device)
                 self._push_block(z)
                 self._push_block(z)
         finally:
-            self._state = saved
+            self._state, self._flat = saved
 
     def reset(self) -> None:
-        self._state = None
+        self._state = self._flat = None
 
 
 def stream_roundtrip(model, audio: np.ndarray, chunk_samples: int):

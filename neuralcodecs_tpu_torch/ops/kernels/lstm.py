@@ -5,7 +5,10 @@ layer over a precomputed input projection, gate order i, f, g, o, with
 (h, c) carried. On the H100 the recurrence is bound by the serial latency
 of a step, not by bytes or flops: the plain loop pays about nine launches
 per step, the kernel one handoff between its blocks through a counter in
-device memory (see the header of csrc/lstm.cu). The kernel takes H up to
+device memory (see the header of csrc/lstm.cu). A launch zeroes the
+counter on its stream first, so it keeps no state on the host and can be
+captured into a CUDA graph (ops/graphs.py) and replayed after other
+launches; launches on one device must still not overlap. The kernel takes H up to
 128 x 5 and up to 4 units a block on each SM (H <= 528 on an H100); larger
 H raises at the launch.
 
