@@ -44,7 +44,14 @@ unit, 3xTF32) against the plain chain at every unit shape of a 10 s
 stream, reproduces the frozen DAC golden and its .dac bytes, checks
 full-width DAC-44k against itself on the CPU, then serves a few requests
 through it and times its round trip with the kernels and with the plain
-versions. DAC training (phase_dac_train): a seeded full-width DAC-44k with
+versions. Chunked execution (phase_chunked, on the served SNAC-24k and
+DAC-44k): kernels 2a and 2b against their plain chains at the windows'
+shapes of a chunked 4 x 10 s round trip, chunked against unchunked codes
+(equal but for first differences at near ties) and audio (> 55 dB), the
+chunked round trips and vocoder decode with the launch counters, and the
+A/B of alternating rounds at n = 1 and at JAX's chunk count of the round
+trip at 4 x 10 s and 4 x 3 s and of DAC's from_codes decode at Dia's
+vocoder shapes. DAC training (phase_dac_train): a seeded full-width DAC-44k with
 DACDiscriminator() at its defaults trains on a batch of 8 x 0.5 s from
 AudioCropDataset (seeded WAVs, through prefetch) through make_gan_train_step
 and make_train_step, under torch.enable_grad(): the first GAN step's six
@@ -87,7 +94,7 @@ error, a control with the row-parallel sums dropped outside it, greedy
 codes up to near-ties); Encodec-24k's latents through kmeans to 1024
 entries (kernel 1) and 5 EMA steps on dp=2 against the one-process update
 with the plain search. --phases runs only the named phases (the serving,
-DAC training, precision and parallel ones), after the build and the
+chunked, DAC training, precision and parallel ones), after the build and the
 exports they need, and prints no kernels line. The
 real servers then serve the loaded models on 127.0.0.1:0 in background
 threads (cli/serve.py's CodecServer, cli/stream_serve.py's
@@ -436,9 +443,9 @@ def _hold_resunits(label: str, cases: list, n_stream: int, gen: torch.Generator)
     case, within rtol 1e-4/atol 1e-5; time both. The first ``n_stream``
     cases are one stream's units, whose times and bound are summed, and
     summed again per C (``per_c``, with a flag where the kernel is slower
-    than plain). A unit does 2 T C 7 C/g flops in its dilated conv and
-    2 T C^2 in its C x C pointwise product, and reads x and its weights once
-    and writes out once. The kernels run on the tensor cores as three TF32
+    than plain). A unit does 2 B T C 7 C/g flops in its dilated conv and
+    2 B T C^2 in its C x C pointwise product, and reads x and its weights
+    once and writes out once. The kernels run on the tensor cores as three TF32
     passes: the dense form both products, the depthwise form the pointwise
     one (its taps stay f32 FMAs). Their bound counts that work at those
     peaks, with the f32 FMA bound (every flop once at the f32 peak) beside
@@ -467,13 +474,14 @@ def _hold_resunits(label: str, cases: list, n_stream: int, gen: torch.Generator)
         if len(rows) < n_stream:
             total_ms += ms
             total_plain_ms += plain_ms
-            conv, pointwise = 2.0 * t * c * KERNEL_TAPS * w_dil.shape[1], 2.0 * t * c * c
+            bt = b * t
+            conv, pointwise = 2.0 * bt * c * KERNEL_TAPS * w_dil.shape[1], 2.0 * bt * c * c
             flops += conv + pointwise
             # in TF32-peak operations: three passes of each product on the
             # tensor cores, the depthwise taps at the f32 rate
             dense = w_dil.shape[1] != 1
             tc_flops += 3 * pointwise + (3 * conv if dense else conv * TF32_FLOPS / F32_FLOPS)
-            nbytes += 4.0 * (2 * c * t + w_dil.numel() + c * c + 4 * c)
+            nbytes += 4.0 * (2 * c * bt + w_dil.numel() + c * c + 4 * c)
         rows.append({"C": c, "dilation": unit.dilation, "T": t, "B": b, "ms": ms,
                      "plain_ms": plain_ms, "max_abs_err": e})
         print(f"    {label} C={c} d={unit.dilation} T={t} B={b}: kernel {ms:.3f} ms, "
@@ -2157,6 +2165,260 @@ def phase_dac_file(model, g, tmp: Path) -> None:
           f"encode_to_file == the CPU's dac_file_bytes of the golden codes ({len(want)} B): "
           f"{same}; decode_from_file vs from_codes within rtol 1e-5/atol 1e-6: {close} "
           f"(max|err| {float((from_file - direct).abs().max()):.2e})")
+
+
+# ------------------------------------------------- chunked execution phase
+
+
+CHUNK_AB_ROUNDS = 5  # alternating rounds a mode (order u c c u u c ...)
+CHUNK_AB_CALLS = 3   # calls a round, timed together by CUDA events
+
+
+def _unit_calls(model, run) -> list:
+    """(unit, T, B) of every residual-unit call that ``run()`` makes."""
+    calls: list = []
+    handles = [u.register_forward_hook(
+        lambda m, inp, out: calls.append((m, inp[0].shape[-1], inp[0].shape[0])))
+        for u in _residual_units(model)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def _stage_inputs(model, run) -> list[torch.Tensor]:
+    """Each RVQ stage's z_e [B, T, D] (its in_proj's output) in ``run()``."""
+    z_e: list = []
+    handles = [vq.in_proj.register_forward_hook(
+        lambda m, inp, out: z_e.append(out.float().transpose(1, 2)))
+        for vq in model.quantizer.quantizers]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return z_e
+
+
+def _first_diffs_near_ties(got: list, want: list, z_e: list, codebooks: list,
+                           strides: list) -> tuple[int, int, float]:
+    """Codes of two runs per stage ([B, T_s], stage s pooling strides[s]
+    frames): (codes that differ, first differences, their largest score
+    gap). A first difference is one no earlier stage differs above (a flip
+    changes the residual of every later stage there); each must lie within
+    _compare_codes' near-tie tolerance on ``z_e`` (got's run), or this
+    raises."""
+    from neuralcodecs_tpu_torch.ops.vq import l2_normalize
+
+    b = got[-1].shape[0]
+    upstream = torch.zeros(b, got[-1].shape[-1] * strides[-1], dtype=torch.bool,
+                           device=got[0].device)
+    n_diff = n_first = 0
+    gap = 0.0
+    for g, w, z, cb, s in zip(got, want, z_e, codebooks, strides):
+        diff = g != w
+        first = diff & ~upstream.reshape(b, -1, s).any(dim=-1)
+        if bool(first.any()):
+            k, gmax = _compare_codes(l2_normalize(z[first]), l2_normalize(cb), g[first],
+                                     w[first])
+            n_first, gap = n_first + k, max(gap, gmax)
+        n_diff += int(diff.sum())
+        upstream |= diff.repeat_interleave(s, dim=-1)
+    return n_diff, n_first, gap
+
+
+def _chunked_vs_unchunked(label: str, model, a: torch.Tensor, n: int) -> dict:
+    """The chunked round trip (n windows) against the unchunked one on the
+    same padded batch, noise off: codes equal except first differences at
+    near ties, audio above 55 dB SNR."""
+    out: dict = {}
+    z_e = _stage_inputs(model, lambda: out.update(chunked=model._forward_chunked_fn(a, None, n)))
+    ref = model._forward_fn(a, None)
+    if isinstance(ref, dict):  # DAC: codes [B, Nq, F], every stage at stride 1
+        got = [out["chunked"]["codes"][:, i] for i in range(ref["codes"].shape[1])]
+        want = [ref["codes"][:, i] for i in range(ref["codes"].shape[1])]
+        audio, ref_audio, strides = out["chunked"]["audio"], ref["audio"], [1] * len(got)
+    else:
+        (audio, got), (ref_audio, want) = out["chunked"], ref
+        strides = list(model.config.vq_strides)
+    codebooks = [vq.codebook.weight for vq in model.quantizer.quantizers]
+    n_diff, n_first, gap = _first_diffs_near_ties(got, want, z_e, codebooks, strides)
+    snr = _snr_db(ref_audio.cpu().numpy().ravel(), audio.cpu().numpy().ravel())
+    total = sum(c.numel() for c in want)
+    phase(f"{label} chunked vs unchunked", snr > 55.0 and bool(torch.isfinite(audio).all()),
+          f"n = {n} at {tuple(a.shape)}: codes that differ {n_diff} of {total}, each first "
+          f"difference at a near-tie ({n_first}, max score gap {gap:.2e}); SNR {snr:.1f} dB "
+          f"(> 55), max|err| {float((audio - ref_audio).abs().max()):.2e}")
+    return {"n": n, "codes_differ": n_diff, "first_near_ties": n_first, "max_gap": gap,
+            "codes": total, "snr_db": snr}
+
+
+def _units_kernel_ms(cases: list) -> float:
+    """Summed kernel time of fused_residual_unit over (unit, T, B) cases."""
+    from neuralcodecs_tpu_torch.ops.kernels.resunit import fused_residual_unit
+
+    total = 0.0
+    for unit, t, b in cases:
+        args = _unit_args(unit)
+        x = torch.randn(b, args[0].shape[1], t, device=args[1].device)
+        total += time_ms(lambda: fused_residual_unit(x, *args, dilation=unit.dilation), 10, 2)
+    return total
+
+
+def _profile_delta(call, n_chunked: int, kernel: str, launches: int, wall_ms: dict) -> dict:
+    """torch.profiler's device time of ``call(n)`` at n = 1 and n_chunked
+    (3 calls each), and the kernels whose time a call changes most."""
+    profs = {mode: _device_profile(lambda n=n: call(n), wall_ms[mode], kernel, launches)
+             for mode, n in (("unchunked", 1), ("chunked", n_chunked))}
+    ms = {mode: {k: t for k, t, _ in prof["top"]} for mode, prof in profs.items()}
+    keys = set(ms["unchunked"]) | set(ms["chunked"])
+    delta = sorted(((ms["chunked"].get(k, 0.0) - ms["unchunked"].get(k, 0.0), k) for k in keys),
+                   key=lambda d: -abs(d[0]))[:6]
+    return {"device_ms": {m: p["device_ms"] for m, p in profs.items()},
+            "idle": {m: p["idle"] for m, p in profs.items()},
+            "delta_ms": [(k[:60], d) for d, k in delta]}
+
+
+def _chunk_ab(label: str, call, n_chunked: int) -> dict:
+    """Alternating rounds of ``call(n)`` unchunked (n = 1) and chunked
+    (n = n_chunked windows): ms a call by CUDA events, each mode's median
+    and spread (max - min over its rounds) and launches a call. Chunked
+    wins if its median is lower by more than the larger spread."""
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    n_of = {"unchunked": 1, "chunked": n_chunked}
+    times: dict = {"unchunked": [], "chunked": []}
+    launches = {}
+    for mode, n in n_of.items():
+        call(n)  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        call(n)
+        torch.cuda.synchronize()
+        launches[mode] = {k: v for k, v in kernels.launch_counts().items() if v}
+    order = [("unchunked", "chunked"), ("chunked", "unchunked")]
+    for r in range(CHUNK_AB_ROUNDS):
+        for mode in order[r % 2]:
+            times[mode].append(time_ms(lambda n=n_of[mode]: call(n), CHUNK_AB_CALLS, 0))
+    med = {m: float(np.median(t)) for m, t in times.items()}
+    spread = {m: max(t) - min(t) for m, t in times.items()}
+    wins = med["chunked"] < med["unchunked"] and \
+        med["unchunked"] - med["chunked"] > max(spread.values())
+    print(f"    chunked A/B {label}: n = {n_chunked}; unchunked median "
+          f"{med['unchunked']:.3f} ms (spread {spread['unchunked']:.3f}), chunked "
+          f"{med['chunked']:.3f} ms (spread {spread['chunked']:.3f}), "
+          f"{(med['chunked'] / med['unchunked'] - 1) * 100:+.2f}%; chunked wins: {wins}; "
+          f"launches a call {launches['unchunked']} / {launches['chunked']}")
+    return {"n": n_chunked, "times_ms": times, "median_ms": med, "spread_ms": spread,
+            "chunked_wins": wins, "launches": launches}
+
+
+def phase_chunked(snac, dac, gen: torch.Generator, card: str) -> dict:
+    """Chunked execution on the card (SNAC-24k and DAC-44k, the served
+    models): kernels 2a and 2b against their plain chains at the windows'
+    (unit, T, B) shapes of a chunked 4 x 10 s round trip; chunked against
+    unchunked at 4 x 10 s (codes up to near ties, SNR > 55 dB); the chunked
+    round trips and DAC's chunked decode driven once with the launch
+    counters (each kernel as often as unchunked); then the A/B of
+    alternating rounds at n = 1 and at JAX's chunk count, of the round trip
+    at 4 x 10 s and 4 x 3 s and of DAC's decode of codes at Dia's vocoder
+    shapes ([4, 9, 862] and a [1, 9, 49] segment)."""
+    from neuralcodecs_tpu_torch.ops import kernels
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 17)
+    batches = {}
+    for name, model in (("snac", snac), ("dac", dac)):
+        sr = model.config.sample_rate
+        for sec in (10, 3):
+            x = torch.from_numpy((0.3 * rng.standard_normal((4, sec * sr))).astype(np.float32))
+            batches[name, sec] = x.to(DEVICE)
+    cb_size = dac.config.codebook_size
+    vocode = {shape: torch.from_numpy(rng.integers(0, cb_size, shape).astype(np.int32)).to(DEVICE)
+              for shape in ((4, dac.config.n_codebooks, 862), (1, dac.config.n_codebooks, 49))}
+
+    res: dict = {}
+    # kernels 2a / 2b at the windows' shapes
+    for name, model, label in (("snac", snac, "chunked resunit"),
+                               ("dac", dac, "chunked resunit dense")):
+        a, _ = model._prepare(batches[name, 10])
+        n = model._auto_chunks(a.shape[-1] if name == "snac" else a.shape[-1] // model.hop_length)
+        res[f"{name}_check"] = _chunked_vs_unchunked(name, model, a, n)
+        cases = _unit_calls(model, lambda: model._forward_chunked_fn(a, None, n))
+        units = _hold_resunits(label, cases, len(cases), gen)
+        units["unchunked_ms"] = _units_kernel_ms(
+            _unit_calls(model, lambda: model._forward_fn(a, None)))
+        phase(f"{label} kernel vs plain", not units["mismatches"],
+              f"{len(cases)} units of a chunked 4 x 10 s round trip (n = {n}, B = "
+              f"{sorted({b for _, _, b in cases})}) within rtol 1e-4/atol 1e-5 (max|err| "
+              f"{units['max_abs_err']:.2e}); kernel {units['ms']:.2f} ms (the unchunked round "
+              f"trip's units {units['unchunked_ms']:.2f} ms), plain {units['plain_ms']:.2f} ms, "
+              f"bound {units['bound_ms']:.2f} ms ({units['bound_by']})"
+              + (f"; mismatches {units['mismatches']}" if units["mismatches"] else ""))
+        res[f"{name}_units"] = units
+
+    # the chunked round trips and vocoder decode, counted
+    snac_a = snac._prepare(batches["snac", 10])[0]
+    dac_a = dac._prepare(batches["dac", 10])[0]
+    voc_codes = vocode[4, dac.config.n_codebooks, 862]
+    n_of = {"snac": snac._auto_chunks(snac_a.shape[-1]),
+            "dac": dac._auto_chunks(dac_a.shape[-1] // dac.hop_length),
+            "vocoder": dac._auto_chunks(voc_codes.shape[-1])}
+    kernels.reset_launch_counts()
+    snac_out, snac_codes = snac._forward_chunked_fn(snac_a, snac._noise_generator(gen),
+                                                    n_of["snac"])
+    dac_out = dac._forward_chunked_fn(dac_a, None, n_of["dac"])
+    voc = dac._decode_chunked_fn(dac.quantizer.from_codes(voc_codes), n_of["vocoder"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {**_NO_LAUNCHES, "codebook_argmin": len(snac_codes) + dac.config.n_codebooks,
+            "fused_residual_unit": len(_residual_units(snac)),
+            "fused_residual_unit_dense": len(_residual_units(dac))
+            + len(_residual_units(dac.decoder))}
+    shapes_ok = (tuple(snac_out.shape) == tuple(snac_a.shape)
+                 and tuple(dac_out["audio"].shape) == tuple(dac_a.shape)
+                 and tuple(voc.shape) == (4, 1, 862 * dac.hop_length)
+                 and all(bool(torch.isfinite(t).all()) for t in (snac_out, dac_out["audio"], voc)))
+    phase("chunked paths", counts == want and shapes_ok and min(n_of.values()) > 1,
+          f"SNAC and DAC round trips at 4 x 10 s and DAC's decode of [4, 9, 862] codes, chunked "
+          f"(n {n_of}): launches {counts} == {want}; shapes and finite: {shapes_ok}")
+    res["counts"] = counts
+
+    # the A/B at n = 1 and at JAX's chunk count
+    ab = {}
+    for name, model in (("snac", snac), ("dac", dac)):
+        for sec in (10, 3):
+            a = model._prepare(batches[name, sec])[0]
+            if name == "snac":
+                n = model._auto_chunks(a.shape[-1])
+                call = lambda n, a=a: snac._forward_chunked_fn(a, snac._noise_generator(gen), n)
+            else:
+                n = model._auto_chunks(a.shape[-1] // model.hop_length)
+                call = lambda n, a=a: dac._forward_chunked_fn(a, None, n)
+            ab[f"{name}_4x{sec}s"] = _chunk_ab(f"{name} round trip 4 x {sec} s", call, n)
+            if sec == 10:  # where the chunked round trip's time goes
+                kernel = "resunit_gemm" if name == "dac" else "depthwise_rows"
+                prof = _profile_delta(call, n, kernel, len(_residual_units(model)) * (
+                    2 if name == "dac" else 1), ab[f"{name}_4x{sec}s"]["median_ms"])
+                ab[f"{name}_4x{sec}s"]["profile"] = prof
+                print(f"    chunked profile {name} 4 x 10 s: device {prof['device_ms']} ms, "
+                      f"idle {prof['idle']}; largest changes a call (chunked - unchunked, ms): "
+                      + ", ".join(f"{k} {d:+.3f}" for k, d in prof["delta_ms"]))
+    for shape, codes in vocode.items():
+        ab[f"dac_from_codes_{list(shape)}"] = _chunk_ab(
+            f"dac from_codes {list(shape)}",
+            lambda n, codes=codes: dac._decode_chunked_fn(dac.quantizer.from_codes(codes), n),
+            dac._auto_chunks(shape[-1]))
+    res["ab"] = ab
+    res["chunked_wins"] = {name: ab[f"{name}_4x10s"]["chunked_wins"] for name in ("snac", "dac")}
+    res["seconds"] = time.time() - t0
+    phase("chunked", True,
+          "chunked median lower at 4 x 10 s by more than either spread: "
+          + ", ".join(f"{k} {v}" for k, v in res["chunked_wins"].items())
+          + f" (the public paths run n = 1, PERF.md §5); {res['seconds']:.1f} s on {card}")
+    return res
 
 
 # ------------------------------------------------------- DAC training phase
@@ -5070,7 +5332,8 @@ def _entry(name: str, source: str, replaces: str, launches: dict, res: dict) -> 
 
 
 PRECISION_PHASES = ("dia_bf16", "codec_precision")
-PHASES = ("snac_http", "encodec_http", "dac_http", "dia_http", "dac_train") + PRECISION_PHASES \
+PHASES = ("snac_http", "encodec_http", "dac_http", "chunked", "dia_http", "dac_train") \
+    + PRECISION_PHASES \
     + PARALLEL_PHASES
 
 
@@ -5091,7 +5354,8 @@ def _precision_phases(tmp: Path, dac_dir: Path, card: str, selected=PRECISION_PH
 def _selected_phases(tmp: Path, card: str, selected: list[str]) -> dict:
     """The phases of ``selected`` alone, after the setup each needs: the
     codec exports (phase_loader) for all, the LM cache for encodec_http,
-    the Dia export for dia_http, dia_bf16 and parallel_dia; dac_train runs
+    the Dia export for dia_http, dia_bf16 and parallel_dia (chunked needs
+    only the codec exports); dac_train runs
     kernel 2b's inference-form check first, as in the whole run."""
     res = {}
     model, enc, dac, dac_dir, _ = phase_loader(tmp, card)
@@ -5103,6 +5367,8 @@ def _selected_phases(tmp: Path, card: str, selected: list[str]) -> dict:
     if "dac_http" in selected:
         res["dac_http"] = phase_dac_http(dac, card)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    if "chunked" in selected:
+        res["chunked"] = phase_chunked(model, dac, gen, card)
     if "dac_train" in selected:
         res["resunit_dense"] = phase_resunit_dense(dac, gen)
     del model, enc, dac
@@ -5181,6 +5447,7 @@ def main() -> int:
             dac_serve = phase_dac_serve(dac, info["smi"])
             dac_http = phase_dac_http(dac, info["smi"])
             phase_dac_file(golden_dac, golden, tmp)
+            chunked = phase_chunked(model, dac, gen, info["smi"])
             del dac
             dac_train = phase_dac_train(tmp, info["smi"], gen)
             t_dia = time.time()
@@ -5203,13 +5470,16 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     paths = (serve, snac_http, enc_serve, enc48, stream, lm_coding, enc_http, dsp, loud,
-             dac_serve, dac_http, dac_train, dia_serve, dia_serve["http"], dia_bf16,
+             dac_serve, dac_http, chunked, dac_train, dia_serve, dia_serve["http"], dia_bf16,
              codec_precision)
     par_counts = _parallel_counts(parallel)
     launches = {name: sum(p["counts"][name] for p in paths) + par_counts[name]
                 for name in KERNELS}
     lstm["rows"] += stream["lstm_rows"]
     cb["rows"] += stream["codebook_rows"]
+    for res, units in ((ru, chunked["snac_units"]), (ru_dense, chunked["dac_units"])):
+        res["rows"] += units["rows"]  # the chunked windows' shapes
+        res["max_abs_err"] = max(res["max_abs_err"], units["max_abs_err"])
     kernels_line = {"kernels": [
         _entry("codebook_argmin", "codebook.cu", "codebook.py:46", launches, cb),
         _entry("fused_residual_unit", "resunit.cu", "resunit.py:154", launches, ru),
@@ -5227,7 +5497,8 @@ def main() -> int:
              "dac_http": dac_http, "lstm": lstm, "encodec_serve": enc_serve,
              "encodec_48k": enc48, "encodec_stream": stream, "ecdc_lm": lm_coding, "envelope": env,
              "biquad": bq, "dsp_pipeline": dsp, "loudness": loud, "resunit_dense": ru_dense,
-             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "dac_train": dac_train,
+             "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "chunked": chunked,
+             "dac_train": dac_train,
              "loader": loader,
              "dia_golden": dia_golden,
              "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve, "dia_bf16": dia_bf16,

@@ -15,8 +15,21 @@ Module and parameter names follow the descript checkpoint (``encoder.block``,
 ``quantizer.quantizers``, ``decoder.model``), so a weight-norm-folded
 checkpoint loads with ``load_state_dict(strict=True)``. Every residual unit
 is dense (groups = 1): on a CUDA device the 24 units of a DAC-44k forward run
-the dense residual-unit kernel and every RVQ stage the codebook kernel. The
-round trip runs unchunked.
+the dense residual-unit kernel and every RVQ stage the codebook kernel.
+
+Chunked execution (ops/chunking.py), as in the JAX package: the encoder's
+in-conv and all but its last block, and the decoder's tail after its first
+block, can run on n overlapping windows batched on the leading axis
+(``_forward_chunked_fn`` / ``_encode_chunked_fn`` / ``_decode_chunked_fn``);
+the rest and the RVQ see the whole stream. The stages are index ranges of
+``encoder.block`` and ``decoder.model``, so the state dict's keys are the
+unchunked model's. ``forward`` / ``encode`` / ``decode`` / ``from_codes`` /
+``from_latents`` (and with them Dia's vocoder) run n = 1 on every device,
+where JAX's pick n with ``_auto_chunks``: the result is the same function,
+and the A/B of the served 4 x 10 s round trip on an H100 80GB HBM3 at
+700 W measured the chunked one 1.2-1.5% slower (150.9-151.6 against
+149.0-149.6 ms; PERF.md §5, the chunked A/B). Training runs unchunked, as
+in JAX.
 
 Precision modes, as in the JAX package: the encoder takes its input in
 ``compute_dtype``, each RVQ stage's z_e goes to f32, and the decoder takes
@@ -58,6 +71,13 @@ from neuralcodecs_tpu_torch.models.layers import (
     Tanh,
     WNConv1d,
     WNConvTranspose1d,
+    run_layers,
+)
+from neuralcodecs_tpu_torch.ops.chunking import (
+    codec_stages,
+    plan_chunks,
+    split_chunks,
+    stitch_chunks,
 )
 from neuralcodecs_tpu_torch.ops.vq import codebook_lookup, cosine_argmin_codes
 
@@ -244,6 +264,10 @@ class DAC(CodecWeights, nn.Module):
             self.quantizer = ResidualVectorQuantizer(self.config)
             self.decoder = Decoder(self.config)
         self.to(resolve_device(device))
+        # the chunked stages: encoder.block[:enc_split] and
+        # decoder.model[_dec_split:] (after the in-conv and the first block)
+        self._stages = codec_stages(self.config.encoder_rates, self.config.decoder_rates)
+        self._dec_split = 1 + min(1, len(self.config.decoder_rates))
 
     @property
     def device(self) -> torch.device:
@@ -265,6 +289,52 @@ class DAC(CodecWeights, nn.Module):
         z_q, codes, latents, commit, cb = self._encode_fn(audio, n_quantizers)
         return {"audio": self._decode_fn(z_q), "z": z_q, "codes": codes, "latents": latents,
                 "vq/commitment_loss": commit, "vq/codebook_loss": cb}
+
+    # ------------------------------------------------- chunked-batch execution
+
+    def _auto_chunks(self, frames: int) -> int:
+        """Largest chunk count (<=8) whose overlap windows still pay off."""
+        return self._stages.auto_chunks(frames * self.hop_length)
+
+    def _encoder_staged(self, audio: torch.Tensor, n_chunks: int) -> torch.Tensor:
+        """The encoder with its long-T early stages chunk-batched; exact."""
+        st = self._stages
+        x = audio.to(self.compute_dtype)
+        plan = plan_chunks(x.shape[-1] // st.enc_ratio, n_chunks, st.enc_halo)
+        if plan is None:
+            return self.encoder(x)
+        layers = list(self.encoder.block)
+        h = run_layers(layers[: st.enc_split], split_chunks(x, plan, scale=st.enc_ratio))
+        return run_layers(layers[st.enc_split:], stitch_chunks(h, plan))
+
+    def _decode_chunked_fn(self, z_q: torch.Tensor, n_chunks: int) -> torch.Tensor:
+        """z_q [B, C, F] -> f32 audio [B, 1, F·hop]: the in-conv and first
+        block on the stream (short T), the narrow long-T tail chunk-batched;
+        exact (ops/chunking.py)."""
+        layers = list(self.decoder.model)
+        h = run_layers(layers[: self._dec_split], z_q.to(self.decoder_dtype))
+        plan = plan_chunks(h.shape[-1], n_chunks, self._stages.dec_tail_halo)
+        if plan is None:
+            return run_layers(layers[self._dec_split:], h).to(torch.float32)
+        y = run_layers(layers[self._dec_split:], split_chunks(h, plan)).to(torch.float32)
+        return stitch_chunks(y, plan, scale=self._stages.dec_tail_ratio)
+
+    def _forward_chunked_fn(self, audio: torch.Tensor, n_quantizers: int | None,
+                            n_chunks: int) -> dict[str, Any]:
+        """The round trip with stage-level chunking on padded [B, 1, T] audio;
+        ``_forward_fn`` itself at n_chunks <= 1."""
+        if n_chunks <= 1:
+            return self._forward_fn(audio, n_quantizers)
+        z_q, codes, latents, commit, cb = self.quantizer(self._encoder_staged(audio, n_chunks),
+                                                         n_quantizers)
+        return {"audio": self._decode_chunked_fn(z_q, n_chunks), "z": z_q, "codes": codes,
+                "latents": latents, "vq/commitment_loss": commit, "vq/codebook_loss": cb}
+
+    def _encode_chunked_fn(self, audio: torch.Tensor, n_quantizers: int | None,
+                           n_chunks: int):
+        if n_chunks <= 1:
+            return self._encode_fn(audio, n_quantizers)
+        return self.quantizer(self._encoder_staged(audio, n_chunks), n_quantizers)
 
     def draw_dropout_mask(self, batch: int, generator: torch.Generator | None = None
                           ) -> torch.Tensor:

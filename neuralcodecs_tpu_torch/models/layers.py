@@ -61,6 +61,16 @@ class Tanh(nn.Module):
         return torch.tanh(x)
 
 
+def run_layers(layers, x: torch.Tensor, generator: torch.Generator | None = None
+               ) -> torch.Tensor:
+    """Run ``layers`` in order, passing the noise generator to those that
+    take one (``takes_generator``). The codecs' chunked stages run index
+    ranges of their containers through it."""
+    for layer in layers:
+        x = layer(x, generator) if getattr(layer, "takes_generator", False) else layer(x)
+    return x
+
+
 class Sequential(nn.Sequential):
     """nn.Sequential that passes the noise generator to the children that
     take one (``takes_generator``)."""
@@ -68,9 +78,7 @@ class Sequential(nn.Sequential):
     takes_generator = True
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        for layer in self:
-            x = layer(x, generator) if getattr(layer, "takes_generator", False) else layer(x)
-        return x
+        return run_layers(self, x, generator)
 
 
 class ResidualUnit(nn.Module):

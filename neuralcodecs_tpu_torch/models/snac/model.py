@@ -10,10 +10,23 @@ Counterpart of neuralcodecs_tpu.models.snac.model. Topology:
       → trim to input length.
 
 Module and parameter names follow the upstream checkpoint (``encoder.block``,
-``quantizer.quantizers``, ``decoder.model``). The round trip runs unchunked:
-the JAX package's chunked execution is a TPU speed mechanism and is not
-ported. On a CUDA device the 24 residual units (SNAC-24k) run the fused
-residual-unit kernel and every RVQ stage runs the codebook kernel.
+``quantizer.quantizers``, ``decoder.model``). On a CUDA device the 24
+residual units (SNAC-24k) run the fused residual-unit kernel and every RVQ
+stage runs the codebook kernel.
+
+Chunked execution (ops/chunking.py), as in the JAX package: the encoder's
+in-conv and all but its last block, and the decoder's tail after its first
+DecoderBlock, can run on n overlapping windows batched on the leading axis
+(``_forward_chunked_fn`` / ``_encode_chunked_fn`` / ``_decode_chunked_fn``);
+the last encoder block, LocalMHA, the RVQ and the decoder head see the whole
+stream. The stages are index ranges of ``encoder.block`` and
+``decoder.model``, so the state dict's keys are the unchunked model's. With
+noise on, the chunked tail draws another noise pattern than the unchunked
+one, as in JAX. ``forward`` / ``encode`` / ``decode`` run n = 1 on every
+device, where JAX's pick n with ``_auto_chunks``: the result is the same
+function, and the A/B of the served 4 x 10 s round trip on an H100 80GB
+HBM3 at 700 W measured the chunked one 4.4-4.6% slower (32.7-33.0 against
+31.3-31.5 ms; PERF.md §5, the chunked A/B).
 
 Precision modes, as in the JAX package: the encoder takes its input in
 ``compute_dtype``, the RVQ runs in f32, and the decoder takes z_q in
@@ -46,8 +59,15 @@ from neuralcodecs_tpu_torch.models.layers import (
     Tanh,
     WNConv1d,
     WNConvTranspose1d,
+    run_layers,
 )
 from neuralcodecs_tpu_torch.models.snac.config import SNACConfig
+from neuralcodecs_tpu_torch.ops.chunking import (
+    codec_stages,
+    plan_chunks,
+    split_chunks,
+    stitch_chunks,
+)
 from neuralcodecs_tpu_torch.ops.vq import codebook_lookup, cosine_argmin_codes
 
 
@@ -215,6 +235,12 @@ class SNAC(CodecWeights, nn.Module):
             self.quantizer = ResidualVectorQuantizer(self.config)
             self.decoder = Decoder(self.config)
         self.to(resolve_device(device))
+        # the chunked stages: encoder.block[:enc_split] and
+        # decoder.model[_dec_split:] (after the first DecoderBlock)
+        self._stages = codec_stages(self.config.encoder_rates, self.config.decoder_rates)
+        self._dec_split = 1 + next(
+            (i for i, layer in enumerate(self.decoder.model) if isinstance(layer, DecoderBlock)),
+            len(self.decoder.model))
 
     @property
     def device(self) -> torch.device:
@@ -243,6 +269,55 @@ class SNAC(CodecWeights, nn.Module):
     def _decode_fn(self, codes: Sequence[torch.Tensor],
                    generator: torch.Generator | None) -> torch.Tensor:
         return self._run_decoder(self.quantizer.from_codes(codes), generator)
+
+    # ------------------------------------------------- chunked-batch execution
+
+    def _auto_chunks(self, samples: int) -> int:
+        """Largest chunk count (<=8) whose overlap windows still pay off."""
+        return self._stages.auto_chunks(samples)
+
+    def _encoder_staged(self, audio: torch.Tensor, n_chunks: int) -> torch.Tensor:
+        """The encoder with its long-T early stages chunk-batched; exact. The
+        last block, LocalMHA and the depthwise conv run on the stitched
+        stream, so attention windows are the unchunked ones. Returns the
+        RVQ's f32 input, as ``_encoder_out``."""
+        st = self._stages
+        plan = plan_chunks(audio.shape[-1] // st.enc_ratio, n_chunks, st.enc_halo)
+        if plan is None:
+            return self._encoder_out(audio)
+        layers = list(self.encoder.block)
+        h = run_layers(layers[: st.enc_split],
+                       split_chunks(audio.to(self.compute_dtype), plan, scale=st.enc_ratio))
+        return run_layers(layers[st.enc_split:], stitch_chunks(h, plan)).to(torch.float32)
+
+    def _run_decoder_staged(self, z_q: torch.Tensor, generator: torch.Generator | None,
+                            n_chunks: int) -> torch.Tensor:
+        """The decoder head (convs, LocalMHA, first block) on the stream, its
+        narrow long-T tail chunk-batched; f32 audio. The generator runs on
+        from the head into the tail."""
+        layers = list(self.decoder.model)
+        x = run_layers(layers[: self._dec_split], z_q.to(self.decoder_dtype), generator)
+        plan = plan_chunks(x.shape[-1], n_chunks, self._stages.dec_tail_halo)
+        if plan is None:
+            return run_layers(layers[self._dec_split:], x, generator).to(torch.float32)
+        y = run_layers(layers[self._dec_split:], split_chunks(x, plan), generator)
+        return stitch_chunks(y, plan, scale=self._stages.dec_tail_ratio).to(torch.float32)
+
+    def _forward_chunked_fn(self, audio: torch.Tensor, generator: torch.Generator | None,
+                            n_chunks: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        if n_chunks <= 1:
+            return self._forward_fn(audio, generator)
+        z_q, codes = self.quantizer(self._encoder_staged(audio, n_chunks))
+        return self._run_decoder_staged(z_q, generator, n_chunks), codes
+
+    def _encode_chunked_fn(self, audio: torch.Tensor, n_chunks: int) -> list[torch.Tensor]:
+        if n_chunks <= 1:
+            return self._encode_fn(audio)
+        return self.quantizer(self._encoder_staged(audio, n_chunks))[1]
+
+    def _decode_chunked_fn(self, codes: Sequence[torch.Tensor],
+                           generator: torch.Generator | None, n_chunks: int) -> torch.Tensor:
+        return self._run_decoder_staged(self.quantizer.from_codes(codes), generator, n_chunks)
 
     # ------------------------------------------------------------- public API
 
