@@ -1,0 +1,13 @@
+"""dac_encoder_idle_share: the share of the traced window in which the
+card was idle while the host was inside the program's "dac.encoder" span
+(the encoder's launches), in %.
+
+One of ``idle_launching_share``'s parts by DAC stage (prepare, encoder,
+quantizer, decoder; the rest is "dac.forward" outside them).
+"""
+
+from benchmarks.program_spans import stage_idle_share
+
+
+def read(trace, ctx):
+    return stage_idle_share(trace, "dac.encoder")

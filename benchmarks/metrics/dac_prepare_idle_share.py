@@ -1,0 +1,13 @@
+"""dac_prepare_idle_share: the share of the traced window in which the
+card was idle while the host was inside the program's "dac.prepare" span
+(the pad and the host-to-device copy of the audio), in %.
+
+One of ``idle_launching_share``'s parts by DAC stage (prepare, encoder,
+quantizer, decoder; the rest is "dac.forward" outside them).
+"""
+
+from benchmarks.program_spans import stage_idle_share
+
+
+def read(trace, ctx):
+    return stage_idle_share(trace, "dac.prepare")

@@ -63,6 +63,7 @@ from torch import nn
 from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.core.registry import registry
 from neuralcodecs_tpu_torch.core.weights import CodecWeights
+from neuralcodecs_tpu_torch.diagnostics.profiler import span
 from neuralcodecs_tpu_torch.dsp.resample import resample_poly
 from neuralcodecs_tpu_torch.models.dac.config import DACConfig
 from neuralcodecs_tpu_torch.models.layers import (
@@ -278,11 +279,15 @@ class DAC(CodecWeights, nn.Module):
     def _encode_fn(self, audio: torch.Tensor, n_quantizers: int | None):
         """The encoder on padded [B, 1, T] audio in ``compute_dtype``, then
         the RVQ: (z_q, codes, latents, commitment loss, codebook loss)."""
-        return self.quantizer(self.encoder(audio.to(self.compute_dtype)), n_quantizers)
+        with span("dac.encoder"):
+            z = self.encoder(audio.to(self.compute_dtype))
+        with span("dac.quantizer"):
+            return self.quantizer(z, n_quantizers)
 
     def _decode_fn(self, z_q: torch.Tensor) -> torch.Tensor:
         """The decoder on z_q [B, C, T] in ``decoder_dtype``; f32 audio."""
-        return self.decoder(z_q.to(self.decoder_dtype)).to(torch.float32)
+        with span("dac.decoder"):
+            return self.decoder(z_q.to(self.decoder_dtype)).to(torch.float32)
 
     def _forward_fn(self, audio: torch.Tensor, n_quantizers: int | None) -> dict[str, Any]:
         """Round trip on padded [B, 1, T] audio; internal [B, C, T] layouts."""
@@ -382,12 +387,14 @@ class DAC(CodecWeights, nn.Module):
         """Round trip: ``audio`` [B, T] (at most the input length), ``z``
         [B, T, C], ``codes`` [B, Nq, T], ``latents`` [B, T, Nq·D] and the two
         VQ loss values."""
-        a, length = self._prepare(audio)
-        out = self._forward_fn(a, n_quantizers)
-        out["audio"] = out["audio"][:, 0, :length]
-        out["z"] = out["z"].transpose(1, 2)
-        out["latents"] = out["latents"].transpose(1, 2)
-        return out
+        with span("dac.forward"):
+            with span("dac.prepare"):
+                a, length = self._prepare(audio)
+            out = self._forward_fn(a, n_quantizers)
+            out["audio"] = out["audio"][:, 0, :length]
+            out["z"] = out["z"].transpose(1, 2)
+            out["latents"] = out["latents"].transpose(1, 2)
+            return out
 
     @torch.no_grad()
     def encode(self, audio, n_quantizers: int | None = None):

@@ -60,6 +60,7 @@ from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.core.exceptions import LoadError
 from neuralcodecs_tpu_torch.core.registry import registry
 from neuralcodecs_tpu_torch.core.weights import check_keys
+from neuralcodecs_tpu_torch.diagnostics.profiler import span
 from neuralcodecs_tpu_torch.models.dia.audio_delay import apply_audio_delay, revert_audio_delay
 from neuralcodecs_tpu_torch.models.dia.config import DiaConfig
 from neuralcodecs_tpu_torch.models.dia.layers import (
@@ -562,43 +563,46 @@ class Dia(nn.Module):
         channels, eos, pad = data.channels, data.audio_eos_value, data.audio_pad_value
 
         # encoder + cross caches over the CFG batch, [uncond; cond] interleaved
-        text = torch.as_tensor(text_tokens, dtype=torch.int64, device=dev)
-        enc_input = torch.stack([torch.zeros_like(text), text], dim=1).reshape(2 * b, -1)
-        padding_mask = enc_input != data.text_pad_value
-        enc_out = self._encode_fn(enc_input, padding_mask)
-        enc_positions = torch.arange(enc_input.shape[1], device=dev)[None, :]
-        cross_caches = [layer.cross_attention.precompute_cross_cache(enc_out, enc_positions,
-                                                                     padding_mask)
-                        for layer in self.decoder.layers]
-        cross_mask = padding_mask[:, None, :]
+        with span("dia.encode", device=dev):
+            text = torch.as_tensor(text_tokens, dtype=torch.int64, device=dev)
+            enc_input = torch.stack([torch.zeros_like(text), text], dim=1).reshape(2 * b, -1)
+            padding_mask = enc_input != data.text_pad_value
+            enc_out = self._encode_fn(enc_input, padding_mask)
+            enc_positions = torch.arange(enc_input.shape[1], device=dev)[None, :]
+            cross_caches = [layer.cross_attention.precompute_cross_cache(enc_out, enc_positions,
+                                                                         padding_mask)
+                            for layer in self.decoder.layers]
+            cross_mask = padding_mask[:, None, :]
 
-        d = cfg.decoder
-        if into is None:
-            self_caches = [KVCacheSlot.zeros(2 * b, max_tokens, layer.self_attention.n_kv,
-                                             d.gqa_head_dim, self.compute_dtype,
-                                             quantized=kv_int8, device=dev)
-                           for layer in self.decoder.layers]
-            generated = torch.full((b, max_tokens, channels), -1, dtype=torch.int64, device=dev)
-        else:
-            self_caches, generated = into.self_caches, into.generated.fill_(-1)
-            for cache in self_caches:
-                for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
-                    if t is not None:
-                        t.zero_()
-        t_pre = prefill.shape[1]
-        generated[:, :t_pre] = prefill
+        with span("dia.prefill", device=dev):
+            d = cfg.decoder
+            if into is None:
+                self_caches = [KVCacheSlot.zeros(2 * b, max_tokens, layer.self_attention.n_kv,
+                                                 d.gqa_head_dim, self.compute_dtype,
+                                                 quantized=kv_int8, device=dev)
+                               for layer in self.decoder.layers]
+                generated = torch.full((b, max_tokens, channels), -1, dtype=torch.int64,
+                                       device=dev)
+            else:
+                self_caches, generated = into.self_caches, into.generated.fill_(-1)
+                for cache in self_caches:
+                    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+                        if t is not None:
+                            t.zero_()
+            t_pre = prefill.shape[1]
+            generated[:, :t_pre] = prefill
 
-        # prefill pass over the whole prompt block, causally masked
-        pre_tokens = generated[:, None, :t_pre].expand(b, 2, t_pre, channels).reshape(
-            2 * b, t_pre, channels)
-        pre_tokens = torch.where(pre_tokens < 0, pad, pre_tokens)
-        positions = torch.arange(t_pre, device=dev)[None, :]
-        causal = torch.ones(t_pre, t_pre, dtype=torch.bool, device=dev).tril()
-        causal = causal[None].expand(2 * b, t_pre, t_pre)
-        x = self._embed_tokens(pre_tokens)
-        cross_mask_pre = cross_mask.expand(2 * b, t_pre, enc_input.shape[1])
-        for layer, cross, cache in zip(self.decoder.layers, cross_caches, self_caches):
-            x = layer.prefill(x, positions, causal, cross, cross_mask_pre, cache)
+            # prefill pass over the whole prompt block, causally masked
+            pre_tokens = generated[:, None, :t_pre].expand(b, 2, t_pre, channels).reshape(
+                2 * b, t_pre, channels)
+            pre_tokens = torch.where(pre_tokens < 0, pad, pre_tokens)
+            positions = torch.arange(t_pre, device=dev)[None, :]
+            causal = torch.ones(t_pre, t_pre, dtype=torch.bool, device=dev).tril()
+            causal = causal[None].expand(2 * b, t_pre, t_pre)
+            x = self._embed_tokens(pre_tokens)
+            cross_mask_pre = cross_mask.expand(2 * b, t_pre, enc_input.shape[1])
+            for layer, cross, cache in zip(self.decoder.layers, cross_caches, self_caches):
+                x = layer.prefill(x, positions, causal, cross, cross_mask_pre, cache)
 
         vocab = torch.arange(cfg.tgt_vocab_size, device=dev)[None, :]
         first = torch.arange(channels, device=dev)[:, None] == 0
@@ -714,14 +718,18 @@ class Dia(nn.Module):
         """Step until position ``stop`` (exclusive) or until every row's
         countdown has drained, which is read once every ``_SYNC_EVERY``
         steps."""
-        n = 0
-        while st.step < stop:
-            if n % _SYNC_EVERY == 0 and self._stop_test(st):
-                return
-            self._advance(st, s)
-            n += 1
-        if st.disagree is not None:
-            self._stop_test(st)
+        with span("dia.loop", device=st.generated.device) as loop:
+            n = 0
+            while st.step < stop:
+                if n % _SYNC_EVERY == 0 and self._stop_test(st):
+                    break
+                self._advance(st, s)
+                n += 1
+            else:
+                if st.disagree is not None:
+                    self._stop_test(st)
+            graphed = st.graphs is not None
+            loop.set(replays=n if graphed else 0, eager_steps=0 if graphed else n)
 
     @staticmethod
     def _stop_test(st: _LoopState) -> bool:
@@ -891,14 +899,16 @@ class Dia(nn.Module):
         padding carries no attention weight, and each row draws its own
         noise."""
         start_time = time.perf_counter()
-        st, prefill_steps, b = self._generate(
-            texts, max_tokens=max_tokens, cfg_scale=cfg_scale, temperature=temperature,
-            top_p=top_p, top_k=top_k, audio_prompts=audio_prompts, seed=seed,
-            pad_text_to=pad_text_to, pad_tokens_to=pad_tokens_to, pad_batch_to=pad_batch_to)
-        try:
-            codes, lengths, finished = self._codes(st, prefill_steps, b)
-        finally:
-            self._release_state(st)
+        with span("dia.generate"):
+            st, prefill_steps, b = self._generate(
+                texts, max_tokens=max_tokens, cfg_scale=cfg_scale, temperature=temperature,
+                top_p=top_p, top_k=top_k, audio_prompts=audio_prompts, seed=seed,
+                pad_text_to=pad_text_to, pad_tokens_to=pad_tokens_to,
+                pad_batch_to=pad_batch_to)
+            try:
+                codes, lengths, finished = self._codes(st, prefill_steps, b)
+            finally:
+                self._release_state(st)
         if verbose:
             # 86 tokens = 1 s of audio
             elapsed = time.perf_counter() - start_time

@@ -5,7 +5,7 @@ the event JSONL lines (apart from timestamps and measured times), the dumps
 and the generated comparison script equal the JAX package's on the same
 arrays; a logged torch tensor gives the stats of its values. ``nan_guard``
 names the first module whose output is non-finite; ``trace`` writes a
-Chrome trace with the annotated region. SNAC's and DAC's ``process_audio``
+Chrome trace with a span's region and the span. SNAC's and DAC's ``process_audio``
 with diagnostics on log the JAX package's modules and tensors (codes equal,
 audio stats within rtol 1e-4 / atol 1e-5) and return the audio of a run with
 diagnostics off (DAC bit for bit; SNAC within rtol 1e-5 / atol 1e-6: its
@@ -27,7 +27,7 @@ from neuralcodecs_tpu.diagnostics.eventsource import log as jevent_log
 from neuralcodecs_tpu_torch.diagnostics import context
 from neuralcodecs_tpu_torch.diagnostics.eventsource import CodecEventSource
 from neuralcodecs_tpu_torch.diagnostics.eventsource import log as event_log
-from neuralcodecs_tpu_torch.diagnostics.profiler import annotate, nan_guard, trace
+from neuralcodecs_tpu_torch.diagnostics.profiler import nan_guard, span, trace
 from test_torch_dac import build_pair as dac_pair
 from test_torch_dac import tiny_kwargs as dac_kwargs
 from test_torch_snac import build_pair as snac_pair
@@ -235,12 +235,18 @@ def test_nan_guard_inside_a_codec():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(tmp_path / "prof") as prof:
-        with annotate("nc.region"):
+        with span("region") as region:
             torch.ones(64, 64) @ torch.ones(64, 64)
+            region.set(rows=2)
     assert prof.trace_path.parent == tmp_path / "prof" and prof.trace_path.exists()
     events = json.loads(prof.trace_path.read_text())["traceEvents"]
     assert any(e.get("name") == "nc.region" for e in events)
     assert any(e.key == "nc.region" for e in prof.key_averages())
+    # the session's spans beside its trace, the recorder cleared on entry
+    assert [(s.name, s.attrs) for s in prof.spans] == [("region", {"rows": 2})]
+    with trace(tmp_path / "prof") as again:
+        pass
+    assert list(again.spans) == []
 
 
 # ------------------------------------------------------- process_audio
