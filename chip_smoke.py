@@ -159,7 +159,7 @@ DEVICE = "cuda"
 
 
 KERNELS = ("codebook_argmin", "fused_residual_unit", "fused_residual_unit_dense", "lstm_scan",
-           "envelope_follow", "biquad_df2t")
+           "envelope_follow", "biquad_df2t", "decode_self_attn", "decode_cross_attn")
 _NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): f32 outside the tensor cores
@@ -2883,6 +2883,293 @@ DIA_TEXTS = [
 DIA_SERVE_KW = dict(max_tokens=512, pad_tokens_to=1024, seed=SEED)  # cli/serve.py's bucket
 
 
+# Dia's decode-attention shapes: the CFG batch of 4 requests (8 rows), 16
+# query and 4 K/V heads of 128 in self-attention over the served 1024-slot
+# buffer, 16 heads over the 256-position text bucket in cross-attention
+ATTN_SHAPE = dict(b=8, nq=16, nkv=4, dh=128, max_t=1024, s=256)
+ATTN_STEPS = (0, 1, 255, 511, 512, 1023)
+ATTN_KERNELS = ("decode_self_attn", "decode_cross_attn")
+ATTN_RING = 8  # layers' caches a timed pass cycles through, past the 50 MB L2
+
+
+def _with_attn(want: dict, counts: dict) -> dict:
+    """``want`` of a Dia path with the decode-attention kernels' entries:
+    their counts as run where those are whole layers' worth of Dia 1.6B
+    and the cross kernel ran (each step launches it once a layer, and the
+    self kernel too on a float cache); None, which fails the check, where
+    not. _dia_steps holds them to the layers exactly, a step at a time."""
+    from neuralcodecs_tpu_torch.models.dia import DiaConfig
+
+    layers = DiaConfig().decoder.n_layer
+    ok = (0 < counts["decode_cross_attn"] and counts["decode_self_attn"] <= counts[
+        "decode_cross_attn"] and all(counts[k] % layers == 0 for k in ATTN_KERNELS))
+    return {**want, **{k: counts[k] if ok else None for k in ATTN_KERNELS}}
+
+
+def _attn_case(gen: torch.Generator, dtype, b, nq, nkv, dh, max_t, s):
+    """Seeded inputs of one layer's decode step: q, k, v (the projections'
+    outputs), a self cache whose every slot holds values (those past the
+    step must not be read), the cross cache with the text padding of the
+    CFG batch (rows 2i every key masked, rows 2i+1 130-143 keys live) and
+    its keys zeroed there, the timescale."""
+    from neuralcodecs_tpu_torch.models.dia.layers import rope_timescale
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=DEVICE) * scale).to(dtype)
+    lengths = torch.randint(130, 144, (b,), generator=gen, device=DEVICE)
+    lengths[0::2] = 0
+    mask = (torch.arange(s, device=DEVICE)[None, :] < lengths[:, None])[:, None, :]
+    ts = torch.from_numpy(rope_timescale(dh)).to(DEVICE, torch.promote_types(dtype, torch.float32))
+    return {"q": rand(b, 1, nq, dh, scale=dh ** -0.5), "k": rand(b, 1, nkv, dh),
+            "v": rand(b, 1, nkv, dh), "k_cache": rand(b, max_t, nkv, dh),
+            "v_cache": rand(b, max_t, nkv, dh),
+            "ck": rand(b, s, nq, dh) * mask[:, 0, :, None, None], "cv": rand(b, s, nq, dh),
+            "cq": rand(b, 1, nq, dh, scale=dh ** -0.5), "mask": mask, "ts": ts}
+
+
+def _attn_close(got: torch.Tensor, want: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The kernel's output ``got`` and the plain version's ``want`` against
+    ``ref``, the plain version in f64 on the same inputs: the kernel is
+    close when its largest error is at most twice the plain version's plus
+    1e-6 of the largest value (the two sum in other orders, and in bf16 a
+    rounded weight or output can land one step apart)."""
+    g, w, r = got.double(), want.double(), ref.double()
+    err, err_plain = float((g - r).abs().max()), float((w - r).abs().max())
+    top = float(r.abs().max())
+    return {"close": err <= 2.0 * err_plain + 1e-6 * top, "err": err, "err_plain": err_plain,
+            "vs_plain": float((g - w).abs().max())}
+
+
+def _f64(case: dict) -> dict:
+    return {k: v.double() if v.is_floating_point() else v for k, v in case.items()}
+
+
+def _attn_self_pair(case: dict, step: int, block: int = 512) -> dict:
+    """The self kernel and its plain version (the blocked read of ``block``)
+    at ``step`` on copies of one cache, and the plain version in f64: the
+    outputs, and the caches the kernel and the plain version left."""
+    from neuralcodecs_tpu_torch.models.dia.layers import KVCacheSlot
+    from neuralcodecs_tpu_torch.ops.kernels.decode_attn import (decode_self_attn,
+                                                                decode_self_attn_plain)
+
+    b, max_t = case["q"].shape[0], case["k_cache"].shape[1]
+    step_t = torch.tensor([step], dtype=torch.int64, device=DEVICE)
+    pos = step_t.expand(b, 1)
+
+    def run(fn, c, **kw):
+        cache = KVCacheSlot(c["k_cache"].clone(), c["v_cache"].clone())
+        return fn(c["q"], c["k"], c["v"], cache, pos, step_t, c["ts"], **kw), cache
+    got, kern = run(decode_self_attn, case)
+    want, plain = run(decode_self_attn_plain, case, block=block if max_t % block == 0 else 0,
+                      n_blocks=step // block + 1)
+    ref, _ = run(decode_self_attn_plain, _f64(case))
+    return {**_attn_close(got, want, ref),
+            "slot_exact": torch.equal(kern.k, plain.k) and torch.equal(kern.v, plain.v)}
+
+
+def _attn_cross_pair(case: dict, position: int) -> dict:
+    from neuralcodecs_tpu_torch.models.dia.layers import KVCacheSlot
+    from neuralcodecs_tpu_torch.ops.kernels.decode_attn import (decode_cross_attn,
+                                                                decode_cross_attn_plain)
+
+    b = case["cq"].shape[0]
+    pos = torch.full((b, 1), position, dtype=torch.int64, device=DEVICE)
+
+    def run(fn, c):
+        return fn(c["cq"], KVCacheSlot(c["ck"], c["cv"]), c["mask"], pos, c["ts"])
+    got, want = run(decode_cross_attn, case), run(decode_cross_attn_plain, case)
+    masked = ~case["mask"][:, 0].any(dim=-1)
+    return {**_attn_close(got, want, run(decode_cross_attn_plain, _f64(case))),
+            "masked_rows_zero": bool((got[masked] == 0).all() and (want[masked] == 0).all()),
+            "masked_rows": int(masked.sum())}
+
+
+def _attn_graphed(case: dict) -> dict:
+    """Each kernel captured once (ops/graphs.StepGraph) and replayed at
+    several steps / positions set on the device, against its plain version
+    there; the launch counters before and after."""
+    from neuralcodecs_tpu_torch.models.dia.layers import KVCacheSlot
+    from neuralcodecs_tpu_torch.ops import kernels
+    from neuralcodecs_tpu_torch.ops.graphs import StepGraph
+    from neuralcodecs_tpu_torch.ops.kernels.decode_attn import (decode_cross_attn,
+                                                                decode_cross_attn_plain,
+                                                                decode_self_attn,
+                                                                decode_self_attn_plain)
+
+    b = case["q"].shape[0]
+    step_t = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    pos = step_t.expand(b, 1)
+    cache = KVCacheSlot(case["k_cache"].clone(), case["v_cache"].clone())
+    cross = KVCacheSlot(case["ck"], case["cv"])
+    kernels.reset_launch_counts()
+    graph = StepGraph(lambda: (
+        decode_self_attn(case["q"], case["k"], case["v"], cache, pos, step_t, case["ts"]),
+        decode_cross_attn(case["cq"], cross, case["mask"], pos, case["ts"])))
+    steps, ok, errs = (3, 64, 700, 1023, 200), True, []
+    c64 = _f64(case)
+    for step in steps:
+        cache.k.copy_(case["k_cache"])
+        cache.v.copy_(case["v_cache"])
+        step_t.fill_(step)
+        got_self, got_cross = graph.replay()
+        plain = KVCacheSlot(case["k_cache"].clone(), case["v_cache"].clone())
+        want_self = decode_self_attn_plain(case["q"], case["k"], case["v"], plain, pos, step_t,
+                                           case["ts"], block=512, n_blocks=step // 512 + 1)
+        ref_self = decode_self_attn_plain(
+            c64["q"], c64["k"], c64["v"], KVCacheSlot(c64["k_cache"].clone(),
+                                                      c64["v_cache"].clone()),
+            pos, step_t, c64["ts"])
+        want_cross = decode_cross_attn_plain(case["cq"], cross, case["mask"], pos, case["ts"])
+        ref_cross = decode_cross_attn_plain(c64["cq"], KVCacheSlot(c64["ck"], c64["cv"]),
+                                            c64["mask"], pos, c64["ts"])
+        for got, want, ref in ((got_self, want_self, ref_self),
+                               (got_cross, want_cross, ref_cross)):
+            r = _attn_close(got, want, ref)
+            ok, errs = ok and r["close"], errs + [r["err"]]
+        ok = ok and torch.equal(cache.k, plain.k) and torch.equal(cache.v, plain.v)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    # one eager warm-up call, then one launch of each a replay
+    want = {name: 1 + len(steps) for name in ATTN_KERNELS}
+    return {"ok": ok and counts == want, "max_err": max(errs), "launches": counts,
+            "want": want, "steps": steps}
+
+
+def _graph_ms(call, n: int) -> float:
+    """Device ms a call of ``call(i)``, i = 0 .. n-1 captured into one CUDA
+    graph and replayed, as the step graphs run them (no host launch cost)."""
+    for i in range(n):
+        call(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            call(i)
+    return time_ms(graph.replay, 20, 2) / n
+
+
+def _attn_times(gen: torch.Generator, steps=(511, 1023)) -> dict:
+    """Per layer, by CUDA events over graph replays (_graph_ms) of a ring of
+    ATTN_RING layers' caches (colder than L2, as in the step, which streams
+    every layer's cache between two visits): the self kernel at ``steps``
+    and the cross kernel at Dia's bf16 shapes, each beside its plain
+    version and its bound (the live K/V bytes it must read at 3.35 TB/s)."""
+    from neuralcodecs_tpu_torch.models.dia.layers import KVCacheSlot
+    from neuralcodecs_tpu_torch.ops.kernels.decode_attn import (decode_cross_attn,
+                                                                decode_cross_attn_plain,
+                                                                decode_self_attn,
+                                                                decode_self_attn_plain)
+
+    sh = ATTN_SHAPE
+    cases = [_attn_case(gen, BF16, **sh) for _ in range(ATTN_RING)]
+    slots = [KVCacheSlot(c["k_cache"], c["v_cache"]) for c in cases]
+    crosses = [KVCacheSlot(c["ck"], c["cv"]) for c in cases]
+    b, elt, n = sh["b"], 2, 4 * ATTN_RING
+    res = {}
+    for step in steps:
+        step_t = torch.tensor([step], dtype=torch.int64, device=DEVICE)
+        pos = step_t.expand(b, 1)
+
+        def self_call(i, fn=decode_self_attn, **kw):
+            c = cases[i % ATTN_RING]
+            return fn(c["q"], c["k"], c["v"], slots[i % ATTN_RING], pos, step_t, c["ts"], **kw)
+        nbytes = 2 * b * (step + 1) * sh["nkv"] * sh["dh"] * elt \
+            + 2 * b * sh["nq"] * sh["dh"] * elt + 4 * b * sh["nkv"] * sh["dh"] * elt
+        res[f"self_{step}"] = {
+            "ms": _graph_ms(self_call, n),
+            "plain_ms": _graph_ms(lambda i: self_call(i, decode_self_attn_plain, block=512,
+                                                      n_blocks=step // 512 + 1), ATTN_RING),
+            **bound(0.0, nbytes)}
+    pos = torch.full((b, 1), 300, dtype=torch.int64, device=DEVICE)
+
+    def cross_call(i, fn=decode_cross_attn):
+        c = cases[i % ATTN_RING]
+        return fn(c["cq"], crosses[i % ATTN_RING], c["mask"], pos, c["ts"])
+    live = sum(int(c["mask"].sum()) for c in cases) / ATTN_RING   # live keys a layer
+    nbytes = 2 * live * sh["nq"] * sh["dh"] * elt + 2 * b * sh["nq"] * sh["dh"] * elt
+    res["cross"] = {"ms": _graph_ms(cross_call, n),
+                    "plain_ms": _graph_ms(lambda i: cross_call(i, decode_cross_attn_plain),
+                                          ATTN_RING),
+                    "live_keys": live, **bound(0.0, nbytes)}
+    return res
+
+
+def phase_decode_attn(gen: torch.Generator, card: str) -> dict:
+    """The decode-attention kernels against their plain versions on the
+    card: at Dia's bf16 shapes (ATTN_SHAPE) at steps ATTN_STEPS (the slot
+    written bit for bit as the plain version writes it) and in
+    cross-attention with the CFG batch's padding (rows with every key
+    masked exactly zero); in f32 and f64 at the first three steps; at the
+    tiny configs' widths (self 4 / 2 heads of 8, cross 2 / 2 of 16); both
+    captured into one graph and replayed at steps set on the device, the
+    launch counters following the replays; the refusals (an int8 cache,
+    half precision); then the times per layer (_attn_times)."""
+    from neuralcodecs_tpu_torch.models.dia.layers import KVCacheSlot
+    from neuralcodecs_tpu_torch.ops.kernels.decode_attn import decode_self_attn
+
+    t0 = time.perf_counter()
+    res, failures = {"self": {}, "cross": {}}, []
+    for dtype, steps in ((BF16, ATTN_STEPS), (torch.float32, ATTN_STEPS[:3]),
+                         (torch.float64, ATTN_STEPS[:3])):
+        case = _attn_case(gen, dtype, **ATTN_SHAPE)
+        name = str(dtype).split(".")[-1]
+        for step in steps:
+            r = res["self"][f"{name}_{step}"] = _attn_self_pair(case, step)
+            if not (r["close"] and r["slot_exact"]):
+                failures.append(f"self {name} step {step}: {r}")
+        for position in (0, 511):
+            r = res["cross"][f"{name}_{position}"] = _attn_cross_pair(case, position)
+            if not (r["close"] and r["masked_rows_zero"]):
+                failures.append(f"cross {name} at {position}: {r}")
+    tiny = _attn_case(gen, torch.float32, b=4, nq=4, nkv=2, dh=8, max_t=64, s=16)
+    for step in (0, 17, 63):
+        r = res["self"][f"tiny_{step}"] = _attn_self_pair(tiny, step, block=16)
+        if not (r["close"] and r["slot_exact"]):
+            failures.append(f"self tiny step {step}: {r}")
+    tiny = _attn_case(gen, torch.float32, b=4, nq=2, nkv=2, dh=16, max_t=64, s=16)
+    tiny["mask"][1::2, :, 5:] = False
+    r = res["cross"]["tiny"] = _attn_cross_pair(tiny, 7)
+    if not (r["close"] and r["masked_rows_zero"]):
+        failures.append(f"cross tiny: {r}")
+    res["graphed"] = _attn_graphed(_attn_case(gen, BF16, **ATTN_SHAPE))
+    if not res["graphed"]["ok"]:
+        failures.append(f"graphed: {res['graphed']}")
+    case = _attn_case(gen, BF16, b=2, nq=4, nkv=2, dh=8, max_t=64, s=16)
+    step_t = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    refusals = {}
+    for label, cache, q in (
+            ("int8 cache", KVCacheSlot.zeros(2, 64, 2, 8, quantized=True, device=DEVICE),
+             case["q"]),
+            ("float16", KVCacheSlot(case["k_cache"].half(), case["v_cache"].half()),
+             case["q"].half())):
+        try:
+            decode_self_attn(q, case["k"].to(q.dtype), case["v"].to(q.dtype), cache,
+                             step_t.expand(2, 1), step_t, case["ts"])
+            refusals[label] = "ran"
+        except (TypeError, ValueError) as exc:
+            refusals[label] = type(exc).__name__
+    res["refusals"] = refusals
+    if "ran" in refusals.values():
+        failures.append(f"refusals: {refusals}")
+    res["times"] = _attn_times(gen)
+    res["seconds"] = time.perf_counter() - t0
+    for key, t in res["times"].items():
+        print(f"    decode attention {key}, a layer: kernel {t['ms'] * 1e3:.1f} us (bound "
+              f"{t['bound_ms'] * 1e3:.2f} us, {t['bound_by']}; "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it), plain chain "
+              f"{t['plain_ms'] * 1e3:.1f} us on {card}")
+    errs = {k: {e: max(v[e] for v in res[k].values()) for e in ("err", "err_plain")}
+            for k in ("self", "cross")}
+    phase("decode attention", not failures,
+          f"self at steps {ATTN_STEPS} (bf16; f32 and f64 at {ATTN_STEPS[:3]}; tiny): error "
+          f"against the f64 plain version at most 2 x the plain chain's (max {errs['self']}), "
+          f"the slot written bit for bit; cross with the CFG padding (max {errs['cross']}), "
+          f"masked rows exactly 0; graphed replays at steps {res['graphed']['steps']}: launches "
+          f"{res['graphed']['launches']}; refusals {refusals}; {res['seconds']:.1f} s"
+          + (f"; FAILED: {failures}" if failures else ""))
+    return res
+
+
 def _dia_tiny_config(audio_length: int = 32):
     """tests/test_dia.py's tiny_config, the goldens' model."""
     from neuralcodecs_tpu_torch.models.dia.config import (
@@ -3166,8 +3453,12 @@ def _dia_steps(dia, texts, steps: int) -> dict:
     """Warm decode steps of a 4-request generation in the served bucket, as
     the loop takes them (``Dia._advance``: graph replays, or eager steps
     inside graphs_disabled()): ms a step by CUDA events, the host's time to
-    issue a step, and from a traced pass over 8 more steps the device ms,
-    the host's launches a step and the top ops."""
+    issue a step, the decode-attention kernels' launches a step (each once a
+    layer, the self kernel not on an int8 cache, or PhaseError), and from a
+    traced pass over 8 more steps the device ms, the host's launches a step
+    and the top ops."""
+    from neuralcodecs_tpu_torch.ops import kernels
+
     text = dia._pad_text([dia.encode_text(t) for t in texts])
     delayed, prefill_steps = dia._prefill([None] * len(texts), len(texts))
     sampling = dia._sampling(DIA_SERVE_KW["pad_tokens_to"], None, None, None, None)
@@ -3178,6 +3469,7 @@ def _dia_steps(dia, texts, steps: int) -> dict:
             dia._advance(st, sampling)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = kernels.launch_counts()
         t0 = time.perf_counter()
         start.record()
         for _ in range(steps):
@@ -3186,12 +3478,19 @@ def _dia_steps(dia, texts, steps: int) -> dict:
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / steps
+        attn = {k: (kernels.launch_counts()[k] - before[k]) / steps for k in ATTN_KERNELS}
+        layers = dia.config.decoder.n_layer
+        if attn != {"decode_self_attn": 0 if dia.kv_cache_int8 else layers,
+                    "decode_cross_attn": layers}:
+            raise PhaseError(f"decode-attention launches a step {attn}, want each once a "
+                             f"layer ({layers}; the self kernel not on an int8 cache)")
         traced = _steps_trace(lambda: dia._advance(st, sampling))
         position = st.step
     finally:
         dia._release_state(st)
     return {"ms": ms, "host_enqueue_ms": host_ms, **traced,
-            "idle": 1.0 - traced["device_ms"] / ms, "position": position}
+            "idle": 1.0 - traced["device_ms"] / ms, "position": position,
+            "attn_launches_a_step": attn}
 
 
 def _graph_pool_gb() -> float:
@@ -3438,9 +3737,10 @@ def phase_dia_serve(dac_dir: Path, card: str, tmp: Path) -> dict:
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
     n_dec, n_enc = len(_residual_units(dac.decoder)), len(_residual_units(dac.encoder))
-    want = {**_NO_LAUNCHES, "codebook_argmin": dac.config.n_codebooks * dac_calls.calls["encode"],
-            "fused_residual_unit_dense": n_dec * dac_calls.calls["from_codes"]
-            + n_enc * dac_calls.calls["encode"]}
+    want = _with_attn({**_NO_LAUNCHES,
+                       "codebook_argmin": dac.config.n_codebooks * dac_calls.calls["encode"],
+                       "fused_residual_unit_dense": n_dec * dac_calls.calls["from_codes"]
+                       + n_enc * dac_calls.calls["encode"]}, counts)
     for (codes, lengths), limit in ((served["codes"], max_tokens),
                                     (clone["codes"], clone_kw["max_tokens"]),
                                     (ladder["codes"], ladder_kw["max_tokens"]),
@@ -3713,9 +4013,10 @@ def phase_dia_bf16(tmp: Path, dac_dir: Path, card: str) -> dict:
     counts = kernels.launch_counts()
     torch.cuda.empty_cache()
     n_dec, n_enc = len(_residual_units(dac.decoder)), len(_residual_units(dac.encoder))
-    want = {**_NO_LAUNCHES, "codebook_argmin": dac.config.n_codebooks * dac_calls.calls["encode"],
-            "fused_residual_unit_dense": n_dec * dac_calls.calls["from_codes"]
-            + n_enc * dac_calls.calls["encode"]}
+    want = _with_attn({**_NO_LAUNCHES,
+                       "codebook_argmin": dac.config.n_codebooks * dac_calls.calls["encode"],
+                       "fused_residual_unit_dense": n_dec * dac_calls.calls["from_codes"]
+                       + n_enc * dac_calls.calls["encode"]}, counts)
     runs = {"bf16": served, "clone": clone, "f32": f32, "int8": res["int8"]["run"],
             "int4": res["int4"]["run"]}
     for label, run in runs.items():
@@ -4464,8 +4765,8 @@ def phase_dia_http(dia, card: str) -> dict:
         for c in clients:
             c.close()
         srv.shutdown()
-    want = {**_NO_LAUNCHES, "fused_residual_unit_dense":
-            len(_residual_units(dac.decoder)) * vocodes.calls["from_codes"]}
+    want = _with_attn({**_NO_LAUNCHES, "fused_residual_unit_dense":
+                       len(_residual_units(dac.decoder)) * vocodes.calls["from_codes"]}, counts)
     (args, kw, _), (inter_args, inter_gen_kw, _) = gen_calls.records["generate"]
     stacked = list(args[0])
     direct = dict(zip(stacked, dia.generate(stacked, **kw)))
@@ -5332,7 +5633,8 @@ def _entry(name: str, source: str, replaces: str, launches: dict, res: dict) -> 
 
 
 PRECISION_PHASES = ("dia_bf16", "codec_precision")
-PHASES = ("snac_http", "encodec_http", "dac_http", "chunked", "dia_http", "dac_train") \
+PHASES = ("decode_attn", "snac_http", "encodec_http", "dac_http", "chunked", "dia_http",
+          "dac_train") \
     + PRECISION_PHASES \
     + PARALLEL_PHASES
 
@@ -5358,6 +5660,11 @@ def _selected_phases(tmp: Path, card: str, selected: list[str]) -> dict:
     only the codec exports); dac_train runs
     kernel 2b's inference-form check first, as in the whole run."""
     res = {}
+    if "decode_attn" in selected:
+        res["decode_attn"] = phase_decode_attn(torch.Generator(device=DEVICE).manual_seed(SEED),
+                                               card)
+        if set(selected) == {"decode_attn"}:
+            return res
     model, enc, dac, dac_dir, _ = phase_loader(tmp, card)
     if "snac_http" in selected:
         res["snac_http"] = phase_snac_http(model, card)
@@ -5451,6 +5758,7 @@ def main() -> int:
             del dac
             dac_train = phase_dac_train(tmp, info["smi"], gen)
             t_dia = time.time()
+            attn = phase_decode_attn(gen, info["smi"])
             dia_golden = phase_dia_golden()
             dia_cmp = phase_dia_card_vs_cpu()
             dia_serve = phase_dia_serve(dac_dir, info["smi"], tmp)
@@ -5488,6 +5796,9 @@ def main() -> int:
         _entry("lstm_scan", "lstm.cu", "lstm.py:103", launches, lstm),
         _entry("envelope_follow", "envelope.cu", "envelope.py:75", launches, env),
         _entry("biquad_df2t", "biquad.cu", "biquad.py:69", launches, bq),
+        {"name": "decode_self_attn / decode_cross_attn", "route": "cuda",
+         "source": "neuralcodecs_tpu_torch/csrc/decode_attn.cu", "replaces": None,
+         "launches": {k: launches[k] for k in ATTN_KERNELS}, "a_layer": attn["times"]},
     ]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -5500,7 +5811,7 @@ def main() -> int:
              "dac_card_vs_cpu": dac_cmp, "dac_serve": dac_serve, "chunked": chunked,
              "dac_train": dac_train,
              "loader": loader,
-             "dia_golden": dia_golden,
+             "dia_golden": dia_golden, "decode_attn": attn,
              "dia_card_vs_cpu": dia_cmp, "dia_serve": dia_serve, "dia_bf16": dia_bf16,
              "codec_precision": codec_precision, "parallel": parallel}, indent=1,
             default=str))

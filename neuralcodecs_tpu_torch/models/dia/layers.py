@@ -14,7 +14,10 @@ read of a step has a fixed shape, so the step can be captured into a CUDA
 graph and replayed at any position: the full read takes the whole buffer
 masked to slots <= step, as the JAX package does; the blocked read takes a
 fixed number of blocks (the host knows how many the step needs) and masks
-the last block's slots past the step.
+the last block's slots past the step. On CUDA a step over a float cache,
+and cross-attention at one position, go through the decode-attention
+kernel instead (ops/kernels/decode_attn.py), which reads the number of
+live slots from the device step index.
 """
 
 from __future__ import annotations
@@ -25,6 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from neuralcodecs_tpu_torch.ops.kernels.decode_attn import (
+    decode_cross_attn,
+    decode_cross_attn_plain,
+    decode_self_attn,
+    decode_self_attn_plain,
+)
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -417,28 +427,27 @@ class Attention(nn.Module):
         """One decode step: x [B, 1, D], position [B, 1]. Writes slot
         ``index`` (an int or a [1] device tensor) of ``cache`` in place,
         then attends over slots 0..index, the causal window the decode loop
-        masks to. ``kv_block > 0`` reads ``n_blocks`` blocks
-        (``_blocked_decode_attn``, optionally with ``kv_dot``); 0 reads the
-        whole buffer, masked."""
+        masks to. On the CPU ``kv_block > 0`` reads ``n_blocks`` blocks
+        (``_blocked_decode_attn``, optionally with ``kv_dot``) and 0 the
+        whole buffer, masked; a float cache on CUDA goes through the
+        decode-attention kernel, which reads the live slots
+        (ops/kernels/decode_attn.py), and an int8 cache takes the plain
+        reads on every device."""
         if kv_block and n_blocks is None:
             n_blocks = int(index) // kv_block + 1
         index = step_index(index, x.device)
-        q = apply_rope(self.q_proj(x), position, self.timescale)
-        k = apply_rope(self.k_proj(x), position, self.timescale)
-        cache.update(k, self.v_proj(x), index)
-        if kv_block:
-            out = _blocked_decode_attn(q, cache, index, kv_block, int8_dot=kv_dot,
-                                       n_blocks=n_blocks)
-        else:
-            ck, cv = cache.kv(q.dtype)
-            live = torch.arange(ck.shape[1], device=x.device) <= index
-            out = sdpa_gqa(q, ck, cv, live.expand(q.shape[0], 1, ck.shape[1]))
+        attend = decode_self_attn if cache.k_scale is None else decode_self_attn_plain
+        out = attend(self.q_proj(x), self.k_proj(x), self.v_proj(x), cache, position, index,
+                     self.timescale, block=kv_block, n_blocks=n_blocks, kv_dot=kv_dot)
         return self.o_proj(out)
 
     def cross_attn(self, x: torch.Tensor, positions: torch.Tensor, cache: KVCacheSlot,
                    mask: torch.Tensor | None) -> torch.Tensor:
-        q = apply_rope(self.q_proj(x), positions, self.timescale)
-        return self.o_proj(sdpa_gqa(q, cache.k, cache.v, mask))
+        """x [B, T, D] against the cross cache under mask [B, T, S]; one
+        position (a decode step) goes through the decode-attention kernel
+        on CUDA."""
+        attend = decode_cross_attn if x.shape[1] == 1 else decode_cross_attn_plain
+        return self.o_proj(attend(self.q_proj(x), cache, mask, positions, self.timescale))
 
     def precompute_cross_cache(self, enc_out: torch.Tensor, enc_positions: torch.Tensor,
                                padding_mask: torch.Tensor | None) -> KVCacheSlot:

@@ -71,6 +71,7 @@ from neuralcodecs_tpu_torch.models.dia.layers import (
     RMSNorm,
 )
 from neuralcodecs_tpu_torch.ops.graphs import GraphCache, graphs_enabled, step_graph
+from neuralcodecs_tpu_torch.ops.kernels.decode_attn import decode_cross_attn, decode_self_attn
 
 # steps between two reads of the loop's stop test, the decode loop's only
 # device->host transfer; up to _SYNC_EVERY - 1 steps may run after the last
@@ -717,19 +718,25 @@ class Dia(nn.Module):
     def _run_loop(self, st: _LoopState, stop: int, s: _Sampling) -> None:
         """Step until position ``stop`` (exclusive) or until every row's
         countdown has drained, which is read once every ``_SYNC_EVERY``
-        steps."""
+        steps. The loop's span counts its replays, eager steps and the
+        steps whose attention ran the decode-attention kernel."""
         with span("dia.loop", device=st.generated.device) as loop:
-            n = 0
+            n = kernel_steps = 0
             while st.step < stop:
                 if n % _SYNC_EVERY == 0 and self._stop_test(st):
                     break
+                # a step ran the decode-attention kernel if it launched both halves
+                before = decode_self_attn.launches, decode_cross_attn.launches
                 self._advance(st, s)
+                kernel_steps += (decode_self_attn.launches > before[0]
+                                 and decode_cross_attn.launches > before[1])
                 n += 1
             else:
                 if st.disagree is not None:
                     self._stop_test(st)
             graphed = st.graphs is not None
-            loop.set(replays=n if graphed else 0, eager_steps=0 if graphed else n)
+            loop.set(replays=n if graphed else 0, eager_steps=0 if graphed else n,
+                     attn_kernel_steps=kernel_steps)
 
     @staticmethod
     def _stop_test(st: _LoopState) -> bool:

@@ -2,6 +2,7 @@
 
 from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t
 from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin
+from neuralcodecs_tpu_torch.ops.kernels.decode_attn import decode_cross_attn, decode_self_attn
 from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow
 from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan
 from neuralcodecs_tpu_torch.ops.kernels.resunit import (
@@ -14,7 +15,9 @@ WRAPPERS = {"codebook_argmin": codebook_argmin,
             "fused_residual_unit_dense": fused_residual_unit_dense,
             "lstm_scan": lstm_scan,
             "envelope_follow": envelope_follow,
-            "biquad_df2t": biquad_df2t}
+            "biquad_df2t": biquad_df2t,
+            "decode_self_attn": decode_self_attn,
+            "decode_cross_attn": decode_cross_attn}
 
 
 def launch_counts() -> dict[str, int]:

@@ -34,7 +34,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: each returns cudaGetLastError() after its launch
 _SIGNATURES = {
     # x, codebook, out, T, N, D, device, stream
@@ -58,6 +58,12 @@ _SIGNATURES = {
     # x, y, e (f64 scratch), s (f32 scratch), N, T, L, S, coefs[5 S] (host f32),
     # phi[2S x 2S] (host f64), device, stream
     "nc_biquad_cascade_f32": [_P] * 4 + [_I] * 4 + [_P, _P, _I, _P],
+    # dtype, q, k_new, v_new, k_cache, v_cache, pos, pos_stride, step, timescale, out,
+    # part, ml (scratch), B, maxT, Nq, Nkv, Dh, chunks, device, stream
+    "nc_decode_attn_self": [_I] + [_P] * 6 + [_L] + [_P] * 5 + [_I] * 7 + [_P],
+    # dtype, q, k_cache, v_cache, mask, mask_stride, pos, pos_stride, timescale, out, B, S,
+    # Nq, Nkv, Dh, device, stream
+    "nc_decode_attn_cross": [_I] + [_P] * 4 + [_L, _P, _L, _P, _P] + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

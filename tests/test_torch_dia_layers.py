@@ -127,18 +127,27 @@ def _caches(quantized: bool, b=2, max_t=64, nkv=2, dh=32):
     return jc, tc
 
 
-@pytest.mark.parametrize("read", ["f32", "int8-dequant", "int8-dot"])
-def test_blocked_decode_attn(read):
+# (query heads, K/V heads): Dia's group of 2 at these widths (the cases'
+# first shape, unnamed in their ids), a group of 4 over one K/V head (Dia's
+# 16 / 4 under tp = 4) and groups of 1 (cross)
+HEADS = {(4, 2): "", (4, 1): "-gqa4-nkv1", (2, 2): "-mha"}
+
+
+@pytest.mark.parametrize("read,heads", [pytest.param(read, heads, id=read + name)
+                                        for heads, name in HEADS.items()
+                                        for read in ("f32", "int8-dequant", "int8-dot")])
+def test_blocked_decode_attn(read, heads):
     """The three reads against the JAX function at steps across block
-    edges, and (f32 / dequant) against the port's own read of the slots. q
-    carries the 1/sqrt(Dh) that Dia's q projection folds in (attention runs
-    at scale 1.0)."""
+    edges, to the buffer's end, and (f32 / dequant) against the port's own
+    read of the slots. q carries the 1/sqrt(Dh) that Dia's q projection
+    folds in (attention runs at scale 1.0)."""
     block = 16
-    jc, tc = _caches(read != "f32")
+    nq, nkv = heads
+    jc, tc = _caches(read != "f32", nkv=nkv)
     for key in ("k", "v", "k_scale", "v_scale"):
         if getattr(jc, key) is not None:
             np.testing.assert_array_equal(getattr(tc, key).numpy(), np.asarray(getattr(jc, key)))
-    q = _rand(2, 2, 1, 4, 32) / np.float32(np.sqrt(32))
+    q = _rand(2, 2, 1, nq, 32) / np.float32(np.sqrt(32))
     dot = read == "int8-dot"
     for step in (0, 15, 16, 17, 40, 63):
         got = tl._blocked_decode_attn(_t(q), tc, step, block, int8_dot=dot)
@@ -152,18 +161,24 @@ def test_blocked_decode_attn(read):
         tl._blocked_decode_attn(_t(q), _caches(True, max_t=2048)[1], 0, 2048, int8_dot=True)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("kv_block", [0, 4])
-def test_step_attn_writes_cache_in_place(quantized, kv_block):
+@pytest.mark.parametrize("kv_block,quantized,heads", [
+    pytest.param(kv_block, quantized, heads, id=f"{kv_block}-{quantized}{name}")
+    for heads, name in HEADS.items() for kv_block in (0, 4) for quantized in (False, True)])
+def test_step_attn_writes_cache_in_place(quantized, kv_block, heads):
+    """Every step of a 12-slot buffer (block edges at 4 and 8, its end at
+    11) against JAX's step, the step's slot written in place as JAX writes
+    it. A float cache goes through ``decode_self_attn`` (its plain version
+    on the CPU), an int8 one through ``decode_self_attn_plain``."""
     b, max_t = 2, 12
-    ja = jl.Attention("a", 32, 32, 4, 2, 8, 32)
+    nq, nkv = heads
+    ja = jl.Attention("a", 32, 32, nq, nkv, 8, 32)
     params = {}
     ja.init(jax.random.key(0), params)
-    ta = tl.Attention(32, 32, 4, 2, 8, 32, device=torch.device("cpu"))
+    ta = tl.Attention(32, 32, nq, nkv, 8, 32, device=torch.device("cpu"))
     ta.load_state_dict({k[2:]: _t(np.asarray(v)) for k, v in params.items()})
     x = _rand(1, b, max_t, 32)
-    jc = jl.KVCacheSlot.zeros(b, max_t, 2, 8, quantized=quantized)
-    tc = tl.KVCacheSlot.zeros(b, max_t, 2, 8, quantized=quantized)
+    jc = jl.KVCacheSlot.zeros(b, max_t, nkv, 8, quantized=quantized)
+    tc = tl.KVCacheSlot.zeros(b, max_t, nkv, 8, quantized=quantized)
     storage = tc.k.data_ptr()
     for t in range(max_t):
         pos = np.full((b, 1), t, np.int32)
@@ -172,16 +187,28 @@ def test_step_attn_writes_cache_in_place(quantized, kv_block):
                                 jnp.asarray(mask), kv_block=kv_block)
         got = ta.step_attn(_t(x[:, t:t + 1]), _t(pos), tc, t, kv_block=kv_block)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL, err_msg=f"step {t}")
+        np.testing.assert_allclose(tc.k[:, t].numpy().astype(np.float32),
+                                   np.asarray(jc.k[:, t]).astype(np.float32), **TOL,
+                                   err_msg=f"slot {t}")
+        assert not tc.k[:, t + 1:].any() and not tc.v[:, t + 1:].any()
     assert tc.k.data_ptr() == storage
     np.testing.assert_allclose(tc.k.numpy().astype(np.float32),
                                np.asarray(jc.k).astype(np.float32), **TOL)
 
 
-def test_cross_cache_zeroes_padded_keys():
-    ja = jl.Attention("a", 32, 16, 2, 2, 16, 32)
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa2"])
+@pytest.mark.parametrize("positions", [3, 1], ids=["prefill", "step"])
+def test_cross_cache_zeroes_padded_keys(positions, heads):
+    """The cross cache against JAX's (padded keys zeroed), and cross
+    attention over it: a block of positions (the prefill) and one position
+    (a decode step, ``decode_cross_attn``'s plain version on the CPU), with
+    real padding in row 0 and every key masked in row 1, whose output is
+    exactly zero."""
+    nq, nkv = heads
+    ja = jl.Attention("a", 32, 16, nq, nkv, 16, 32)
     params = {}
     ja.init(jax.random.key(1), params)
-    ta = tl.Attention(32, 16, 2, 2, 16, 32, device=torch.device("cpu"))
+    ta = tl.Attention(32, 16, nq, nkv, 16, 32, device=torch.device("cpu"))
     ta.load_state_dict({k[2:]: _t(np.asarray(v)) for k, v in params.items()})
     enc = _rand(0, 2, 6, 16)
     pad = np.array([[True] * 4 + [False] * 2, [False] * 6])
@@ -190,13 +217,14 @@ def test_cross_cache_zeroes_padded_keys():
     tc = ta.precompute_cross_cache(_t(enc), _t(pos), _t(pad))
     np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), **TOL)
     assert not tc.k[1].any() and not tc.k[0, 4:].any()
-    x = _rand(2, 2, 3, 32)
-    xpos = np.arange(3, dtype=np.int32)[None]
-    mask = np.broadcast_to(pad[:, None, :], (2, 3, 6))
+    x = _rand(2, 2, positions, 32)
+    xpos = np.arange(positions, dtype=np.int32)[None] + (5 if positions == 1 else 0)
+    mask = np.broadcast_to(pad[:, None, :], (2, positions, 6))
+    got = ta.cross_attn(_t(x), _t(xpos), tc, _t(mask)).numpy()
     np.testing.assert_allclose(
-        ta.cross_attn(_t(x), _t(xpos), tc, _t(mask)).numpy(),
-        np.asarray(ja.cross_attn(params, jnp.asarray(x), jnp.asarray(xpos), jc,
-                                 jnp.asarray(mask))), **TOL)
+        got, np.asarray(ja.cross_attn(params, jnp.asarray(x), jnp.asarray(xpos), jc,
+                                      jnp.asarray(mask))), **TOL)
+    assert np.isfinite(got).all() and not got[1].any() and got[0].any()
 
 
 @pytest.mark.parametrize("delay", [[0, 1, 2], [0, 2, 3], [0, 8, 9, 10, 11, 12, 13, 14, 15]])

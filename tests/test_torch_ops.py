@@ -30,7 +30,12 @@ from neuralcodecs_tpu_torch.core.weights import fold_weight_norm, from_jax_param
 from neuralcodecs_tpu_torch.ops import kernels
 from neuralcodecs_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from neuralcodecs_tpu_torch.ops.kernels.biquad import biquad_df2t, biquad_df2t_plain
+from neuralcodecs_tpu_torch.models.dia.layers import KVCacheSlot
 from neuralcodecs_tpu_torch.ops.kernels.codebook import codebook_argmin, codebook_argmin_plain
+from neuralcodecs_tpu_torch.ops.kernels.decode_attn import (decode_cross_attn,
+                                                            decode_cross_attn_plain,
+                                                            decode_self_attn,
+                                                            decode_self_attn_plain)
 from neuralcodecs_tpu_torch.ops.kernels.envelope import envelope_follow, envelope_follow_plain
 from neuralcodecs_tpu_torch.ops.kernels.lstm import lstm_scan, lstm_scan_plain
 from neuralcodecs_tpu_torch.ops.kernels.resunit import (
@@ -227,7 +232,22 @@ def test_resunit_matches_jax_residual_unit(rng, dilation, groups):
 
 _NO_LAUNCHES = {"codebook_argmin": 0, "fused_residual_unit": 0,
                 "fused_residual_unit_dense": 0, "lstm_scan": 0, "envelope_follow": 0,
-                "biquad_df2t": 0}
+                "biquad_df2t": 0, "decode_self_attn": 0, "decode_cross_attn": 0}
+
+
+def _attn_inputs(rng, device="cpu"):
+    """A decode step's q, k, v [2, 1, 4 | 2, 8], a 6-slot cache, positions,
+    timescale, and a cross cache of 5 keys with its mask, on ``device``."""
+    from neuralcodecs_tpu_torch.models.dia.layers import KVCacheSlot, rope_timescale
+
+    def t(*shape):
+        return _t(_rand(rng, *shape)).to(device)
+    cache = KVCacheSlot(t(2, 6, 2, 8), t(2, 6, 2, 8))
+    cross = KVCacheSlot(t(2, 5, 2, 8), t(2, 5, 2, 8))
+    mask = torch.tensor([[[True] * 3 + [False] * 2], [[False] * 5]], device=device)
+    pos = torch.full((2, 1), 3, dtype=torch.int64, device=device)
+    ts = torch.from_numpy(rope_timescale(8)).to(device)
+    return t(2, 1, 4, 8), t(2, 1, 2, 8), t(2, 1, 2, 8), cache, pos, ts, cross, mask
 
 
 def _lstm_inputs(rng, t, b, h):
@@ -312,6 +332,15 @@ def test_wrappers_run_plain_on_cpu_without_counting(rng):
     b, a = (0.2, 0.3, 0.1), (1.0, -0.5, 0.25)
     torch.testing.assert_close(biquad_df2t(xs, [(b, a)]), biquad_df2t_plain(xs, b, a),
                                rtol=0, atol=0)
+    q, k, v, cache, pos, ts, cross, mask = _attn_inputs(rng)
+    step = torch.tensor([3])
+    plain_cache = KVCacheSlot(cache.k.clone(), cache.v.clone())
+    torch.testing.assert_close(
+        decode_self_attn(q, k, v, cache, pos, step, ts),
+        decode_self_attn_plain(q, k, v, plain_cache, pos, step, ts), rtol=0, atol=0)
+    torch.testing.assert_close(cache.k, plain_cache.k, rtol=0, atol=0)
+    torch.testing.assert_close(decode_cross_attn(q, cross, mask, pos, ts),
+                               decode_cross_attn_plain(q, cross, mask, pos, ts), rtol=0, atol=0)
     assert kernels.launch_counts() == _NO_LAUNCHES
 
 
@@ -337,6 +366,12 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda(rng):
         envelope_follow(torch.empty(2, 100, device="meta"), 0.2, 0.01)
     with pytest.raises(ValueError):
         biquad_df2t(torch.empty(2, 100, device="meta"), [((1.0, 0.0, 0.0), (1.0, 0.0, 0.0))])
+    q, k, v, cache, pos, ts, cross, mask = _attn_inputs(rng, "meta")
+    with pytest.raises(ValueError):
+        decode_self_attn(q, k, v, cache, pos, torch.zeros(1, dtype=torch.int64, device="meta"),
+                         ts)
+    with pytest.raises(ValueError):
+        decode_cross_attn(q, cross, mask, pos, ts)
     assert kernels.launch_counts() == _NO_LAUNCHES
 
 
