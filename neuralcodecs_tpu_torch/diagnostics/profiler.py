@@ -218,6 +218,11 @@ def trace(log_dir: str | Path | None = None):
         prof.export_chrome_trace(str(prof.trace_path))
 
 
+def annotate(name: str):
+    """Named region that shows up in profiler timelines."""
+    return torch.profiler.record_function(name)
+
+
 def _non_finite(out) -> bool:
     """Does a module output (a tensor, or tensors nested in tuples, lists and
     dicts) hold a NaN or an Inf in a floating tensor?"""

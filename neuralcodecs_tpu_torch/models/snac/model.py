@@ -28,6 +28,14 @@ function, and the A/B of the served 4 x 10 s round trip on an H100 80GB
 HBM3 at 700 W measured the chunked one 4.4-4.6% slower (32.7-33.0 against
 31.3-31.5 ms; PERF.md §5, the chunked A/B).
 
+Spans (``diagnostics.profiler.span``): ``forward`` / ``encode`` / ``decode``
+each open one root, ``snac.forward`` / ``snac.encode`` / ``snac.decode``,
+with ``snac.prepare`` (the upload), ``snac.encoder``, ``snac.quantizer`` and
+``snac.decoder`` under it as the call runs them. The root counts the
+residual units the call ran (``units``) and those whose wrapper launched
+kernel 2a (``unit_kernel_units``), from the wrapper's own counters on the
+host: nothing waits for the card.
+
 Precision modes, as in the JAX package: the encoder takes its input in
 ``compute_dtype``, the RVQ runs in f32, and the decoder takes z_q in
 ``decoder_dtype`` (default ``compute_dtype``, default f32); the output is
@@ -40,6 +48,7 @@ kernels always see f32.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import numpy as np
@@ -49,6 +58,7 @@ from torch import nn
 from neuralcodecs_tpu_torch.core.device import resolve_device
 from neuralcodecs_tpu_torch.core.registry import registry
 from neuralcodecs_tpu_torch.core.weights import CodecWeights
+from neuralcodecs_tpu_torch.diagnostics.profiler import span
 from neuralcodecs_tpu_torch.dsp.resample import linear_resample
 from neuralcodecs_tpu_torch.models.layers import (
     LocalMHA,
@@ -68,7 +78,20 @@ from neuralcodecs_tpu_torch.ops.chunking import (
     split_chunks,
     stitch_chunks,
 )
+from neuralcodecs_tpu_torch.ops.kernels.resunit import fused_residual_unit
 from neuralcodecs_tpu_torch.ops.vq import codebook_lookup, cosine_argmin_codes
+
+
+@contextlib.contextmanager
+def _call_span(name: str):
+    """The root span of one public call, with the residual units the call
+    ran and those that launched kernel 2a: the wrapper's counts after the
+    call less those before it."""
+    with span(name) as root:
+        units, launches = fused_residual_unit.units, fused_residual_unit.launches
+        yield
+        root.set(units=fused_residual_unit.units - units,
+                 unit_kernel_units=fused_residual_unit.launches - launches)
 
 
 class EncoderBlock(nn.Module):
@@ -250,25 +273,35 @@ class SNAC(CodecWeights, nn.Module):
 
     def _encoder_out(self, audio: torch.Tensor) -> torch.Tensor:
         """The encoder on audio in ``compute_dtype``; the RVQ's input in f32."""
-        return self.encoder(audio.to(self.compute_dtype)).to(torch.float32)
+        with span("snac.encoder"):
+            return self.encoder(audio.to(self.compute_dtype)).to(torch.float32)
 
     def _run_decoder(self, z_q: torch.Tensor, generator: torch.Generator | None
                      ) -> torch.Tensor:
         """The decoder on z_q in ``decoder_dtype``; the audio in f32."""
-        return self.decoder(z_q.to(self.decoder_dtype), generator).to(torch.float32)
+        with span("snac.decoder"):
+            return self.decoder(z_q.to(self.decoder_dtype), generator).to(torch.float32)
+
+    def _quantize(self, z: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """The RVQ on the encoder's output. Its own frame, so that the
+        caller holds no reference to z while the decoder runs."""
+        with span("snac.quantizer"):
+            return self.quantizer(z)
 
     def _forward_fn(self, audio: torch.Tensor, generator: torch.Generator | None
                     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
         """Round trip on padded [B, 1, T] audio -> ([B, 1, T], codes)."""
-        z_q, codes = self.quantizer(self._encoder_out(audio))
+        z_q, codes = self._quantize(self._encoder_out(audio))
         return self._run_decoder(z_q, generator), codes
 
     def _encode_fn(self, audio: torch.Tensor) -> list[torch.Tensor]:
-        return self.quantizer(self._encoder_out(audio))[1]
+        return self._quantize(self._encoder_out(audio))[1]
 
     def _decode_fn(self, codes: Sequence[torch.Tensor],
                    generator: torch.Generator | None) -> torch.Tensor:
-        return self._run_decoder(self.quantizer.from_codes(codes), generator)
+        with span("snac.quantizer"):
+            z_q = self.quantizer.from_codes(codes)
+        return self._run_decoder(z_q, generator)
 
     # ------------------------------------------------- chunked-batch execution
 
@@ -350,21 +383,30 @@ class SNAC(CodecWeights, nn.Module):
     def forward(self, audio, generator: torch.Generator | None = None
                 ) -> tuple[torch.Tensor, list[torch.Tensor]]:
         """Round trip: returns (audio_hat [B, T], codes list of [B, frames_i])."""
-        a, length = self._prepare(audio)
-        audio_hat, codes = self._forward_fn(a, self._noise_generator(generator))
-        return audio_hat[:, 0, :length], codes
+        with _call_span("snac.forward"):
+            with span("snac.prepare"):
+                a, length = self._prepare(audio)
+                generator = self._noise_generator(generator)
+            audio_hat, codes = self._forward_fn(a, generator)
+            return audio_hat[:, 0, :length], codes
 
     @torch.no_grad()
     def encode(self, audio) -> list[torch.Tensor]:
         """Audio -> list of per-stage code index arrays [B, frames_i]."""
-        return self._encode_fn(self._prepare(audio)[0])
+        with _call_span("snac.encode"):
+            with span("snac.prepare"):
+                a = self._prepare(audio)[0]
+            return self._encode_fn(a)
 
     @torch.no_grad()
     def decode(self, codes: Sequence, generator: torch.Generator | None = None) -> torch.Tensor:
         """Codes -> audio [B, T] (T = frames of the stride-1 stage × hop)."""
-        codes = [torch.as_tensor(c, dtype=torch.int32, device=self.device) for c in codes]
-        codes = [c[None, :] if c.dim() == 1 else c for c in codes]
-        return self._decode_fn(codes, self._noise_generator(generator))[:, 0, :]
+        with _call_span("snac.decode"):
+            with span("snac.prepare"):
+                codes = [torch.as_tensor(c, dtype=torch.int32, device=self.device) for c in codes]
+                codes = [c[None, :] if c.dim() == 1 else c for c in codes]
+                generator = self._noise_generator(generator)
+            return self._decode_fn(codes, generator)[:, 0, :]
 
     def process_audio(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
         """Resample to the model's rate if needed, then round-trip one clip

@@ -17,12 +17,14 @@ through device memory as a scratch [B, C, T]:
 
 ``fused_residual_unit`` is the wrapper: the plain version for CPU tensors,
 the depthwise or the dense kernels for CUDA tensors by the shape of Wd, or
-an error. ``fused_residual_unit.launches`` counts depthwise units and
-``fused_residual_unit_dense.launches`` dense units (one a call, though a
-call makes two or three launches). The kernels read W1 as [Cout, Cin] and
-the dense Wd re-laid to [7, Cout, Cin], each split into its TF32 part and
-the rest (``pack_pointwise_weights``, ``pack_conv_weights``), once for each
-weight tensor and kept on it until it changes.
+an error. ``fused_residual_unit.units`` counts the units it was called for,
+whatever ran them; ``fused_residual_unit.launches`` counts depthwise units
+that ran the kernel and ``fused_residual_unit_dense.launches`` dense units
+(one a call, though a call makes two or three launches). The kernels read
+W1 as [Cout, Cin] and the dense Wd re-laid to [7, Cout, Cin], each split
+into its TF32 part and the rest (``pack_pointwise_weights``,
+``pack_conv_weights``), once for each weight tensor and kept on it until it
+changes.
 
 Training (the dense form only). In grad mode, where an input requires
 grad, the dense wrapper runs ``DenseResidualUnitFn``: its forward launches
@@ -238,6 +240,7 @@ def fused_residual_unit(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torch.Tens
     """x + unit(x) for x [B, C, T] f32; arguments as in residual_unit_plain.
     A dense Wd [C, C, 7] (C > 1) goes to ``fused_residual_unit_dense``."""
     args = (alpha1, w_dil, b_dil, alpha2, w_pw, b_pw)
+    fused_residual_unit.units += 1
     if _on_cpu(x, args):
         return residual_unit_plain(x, *args, dilation=dilation)
     if w_dil.dim() == 3 and w_dil.shape[1] != 1:
@@ -272,5 +275,6 @@ def fused_residual_unit_dense(x: torch.Tensor, alpha1: torch.Tensor, w_dil: torc
     return out
 
 
+fused_residual_unit.units = 0
 fused_residual_unit.launches = 0
 fused_residual_unit_dense.launches = 0

@@ -1,5 +1,5 @@
 """The port's span recorder (``diagnostics.profiler.span``) and its spans in
-Dia's and DAC's paths, on the CPU with tiny configurations.
+Dia's, DAC's and SNAC's paths, on the CPU with tiny configurations.
 
 Off (no profiler recording, no ``recording()`` block), ``span`` returns one
 shared object and records nothing. On, spans nest by parent id, share the
@@ -19,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from neuralcodecs_tpu_torch.diagnostics import profiler
 from neuralcodecs_tpu_torch.diagnostics.profiler import (
+    annotate,
     clear_spans,
     recorded_spans,
     recording,
@@ -32,6 +33,9 @@ from neuralcodecs_tpu_torch.models.dia.config import (
     DiaDecoderConfig,
     DiaEncoderConfig,
 )
+from neuralcodecs_tpu_torch.models.layers import ResidualUnit
+from neuralcodecs_tpu_torch.models.snac import SNAC
+from neuralcodecs_tpu_torch.models.snac.config import SNACConfig
 
 TEXTS = ["[S1] one two [S2] three", "[S1] four five six [S2] seven"]
 
@@ -47,6 +51,13 @@ def _tiny_dac() -> DAC:
     cfg = DACConfig(sample_rate=4410, encoder_dim=8, encoder_rates=[2, 4], decoder_dim=32,
                     decoder_rates=[4, 2], n_codebooks=3, codebook_size=1024, codebook_dim=4)
     return DAC(cfg, device="cpu", seed=1).eval()
+
+
+def _tiny_snac() -> SNAC:
+    cfg = SNACConfig(sampling_rate=2400, encoder_dim=8, encoder_rates=[2, 4], decoder_dim=32,
+                     decoder_rates=[4, 2], attn_window_size=None, codebook_size=256,
+                     codebook_dim=4, vq_strides=[4, 2, 1])
+    return SNAC(cfg, device="cpu", seed=2).eval()
 
 
 def _tiny_dia() -> Dia:
@@ -226,3 +237,47 @@ def test_outputs_are_the_same_recorded_or_not():
         assert torch.equal(plain[key], recorded[key]), key
     assert torch.equal(decoded, model.from_codes(plain["codes"]))
     assert recorded_spans()
+
+
+def _snac_audio() -> np.ndarray:
+    return (0.3 * np.random.default_rng(2).standard_normal((2, 900))).astype(np.float32)
+
+
+@pytest.mark.parametrize("call,stages,units", [
+    ("forward", ["snac.prepare", "snac.encoder", "snac.quantizer", "snac.decoder"], 12),
+    ("encode", ["snac.prepare", "snac.encoder", "snac.quantizer"], 6),
+    ("decode", ["snac.prepare", "snac.quantizer", "snac.decoder"], 6)])
+def test_snac_calls_record_their_stages_and_units(call, stages, units):
+    model = _tiny_snac()
+    assert sum(isinstance(m, ResidualUnit) for m in model.modules()) == 12
+    arg = model.encode(_snac_audio()) if call == "decode" else _snac_audio()
+    with recording():
+        getattr(model, call)(arg)
+    spans = recorded_spans()
+    root = _one(spans, f"snac.{call}")
+    # the CPU takes the plain units: none launched kernel 2a
+    assert root.parent is None and root.attrs == {"units": units, "unit_kernel_units": 0}
+    assert _children(spans, root) == stages
+    inner = sorted((s for s in spans if s is not root), key=lambda s: s.start_ns)
+    assert root.start_ns <= inner[0].start_ns and inner[-1].end_ns <= root.end_ns
+    assert all(a.end_ns <= b.start_ns for a, b in zip(inner, inner[1:]))
+    assert {s.request for s in spans} == {root.id}
+
+
+def test_snac_records_nothing_unrecorded_and_the_same_audio_recorded():
+    model = _tiny_snac()
+    plain = model.forward(_snac_audio())
+    assert list(recorded_spans()) == []
+    with recording():
+        recorded = model.forward(_snac_audio())
+    assert torch.equal(plain[0], recorded[0])
+    assert all(torch.equal(a, b) for a, b in zip(plain[1], recorded[1]))
+
+
+def test_annotate_is_a_named_profiler_region():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with annotate("nc_test.region"):
+            torch.ones(8) + 1
+    assert [e.name() for e in prof.profiler.kineto_results.events()
+            if e.name() == "nc_test.region"] == ["nc_test.region"]
+    assert list(recorded_spans()) == []
